@@ -5,5 +5,7 @@ setup(
     version="0.1.0",
     description="TPU-native automatic multitrack mixing framework (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests",)),
+    # the PyTorch port builds its CUDA kernels from these sources at first use
+    package_data={"tpumix_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
 )

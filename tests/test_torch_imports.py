@@ -1,0 +1,99 @@
+"""The PyTorch port stands alone: no file of ``tpumix_torch/`` and not
+``chip_smoke.py`` imports JAX, Flax or the JAX package, importing the port
+loads none of them, and the default device is the card — never a silent CPU
+fall-back."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "tpumix")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "tpumix_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)  # one order for every test worker
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_imports(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_import_loads_no_jax_module():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import tpumix_torch, tpumix_torch.cli, tpumix_torch.infer.mixer, "
+        "tpumix_torch.infer.catalog, tpumix_torch.ops.stft_dif, tpumix_torch.ops.conv_block, "
+        "tpumix_torch.ops._build, tpumix_torch.assets\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpumix'))\n"
+        "print(len(new)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) > 0
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from tpumix_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mixer_default_device_raises_without_cuda(monkeypatch):
+    from tpumix_torch.config import preset
+    from tpumix_torch.infer.mixer import SongMixer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SongMixer(torch.nn.Identity(), preset("scalar2s"))
+
+
+def test_cli_device_flag_defaults_to_cuda():
+    from tpumix_torch.cli import build_parser
+
+    args = build_parser().parse_args(["mix", "--data", "x"])
+    assert args.device == "cuda" and args.model == "scalar2s"
+    assert args.transfer_dtype == "float32" and not args.device_mix
+
+
+def test_smoke_script_fails_outside_checkout(tmp_path):
+    """``chip_smoke.py`` alone in a directory exits non-zero with no result
+    line (here the CPU-only torch stops it first; on a card the missing
+    package does)."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

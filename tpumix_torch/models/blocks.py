@@ -1,0 +1,89 @@
+"""Building blocks of the scalar gain models (tpumix/models/blocks.py:136-263).
+
+ConvBlock2d is Conv2d(VALID) -> BatchNorm(eps 1e-3, torch momentum 0.90 ==
+flax retained fraction 0.10) -> ReLU -> Dropout (train only), reference
+model_scalar_1s.py:151-190.  The trunk runs in ``torch.channels_last``, so the
+NHWC view the fused kernel takes is free.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+
+from tpumix_torch.ops.conv_block import conv_block_fused, fold_batchnorm
+
+BN_EPS = 1e-3
+
+
+def _pair(k: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
+    return (k, k) if isinstance(k, int) else tuple(k)
+
+
+class ConvBlock2d(nn.Module):
+    """Conv2d(VALID) -> BatchNorm -> ReLU -> Dropout(train-only).
+
+    ``conv_impl="pallas"`` runs eligible blocks (eval mode, stride 1,
+    dilation 1, float32 — the conditions of tpumix/models/blocks.py:166-173)
+    through the fused conv+BN+ReLU kernel with BN folded; every other case
+    is ``F.conv2d`` + BN + ReLU."""
+
+    def __init__(self, in_features: int, features: int, kernel_size, strides: int = 1,
+                 dilation: int = 1, dropout_p: float = -1.0, bn_momentum: float = 0.10,
+                 conv_impl: str = "xla"):
+        super().__init__()
+        if conv_impl not in ("xla", "pallas"):
+            raise NotImplementedError(
+                f"conv_impl {conv_impl!r} is not ported; have 'xla', 'pallas' "
+                "(khgemm and int8 lowerings are ROADMAP.md item 16)"
+            )
+        self.conv = nn.Conv2d(in_features, features, _pair(kernel_size), stride=strides,
+                              dilation=dilation, padding=0)
+        # flax momentum is the retained fraction of the running stats; torch's
+        # is the new batch's share
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
+        self.dropout = nn.Dropout(dropout_p) if dropout_p > 0 else None
+        self.conv_impl = conv_impl
+
+    def _fused_eligible(self, x: torch.Tensor) -> bool:
+        return (
+            self.conv_impl == "pallas"
+            and not self.training
+            and self.conv.stride == (1, 1)
+            and self.conv.dilation == (1, 1)
+            and x.dtype == torch.float32
+            and self.conv.weight.dtype == torch.float32
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fused_eligible(x):
+            s, t = fold_batchnorm(self.conv.bias, self.bn.weight, self.bn.bias,
+                                  self.bn.running_mean, self.bn.running_var, self.bn.eps)
+            nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            w = self.conv.weight.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
+            y = conv_block_fused(nhwc, w, s.contiguous(), t.contiguous())
+            return y.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        x = torch.relu(self.bn(self.conv(x)))
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x
+
+
+class ScalarHead(nn.Module):
+    """Per-stem gain head: Conv 1x1 (C->1) -> ReLU -> flatten -> Linear(1).
+
+    With one output channel, the NCHW flatten of ``[B, 1, H, W]`` and the
+    NHWC flatten of the JAX model enumerate the same H*W order."""
+
+    def __init__(self, in_features: int, flat_features: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_features, 1, 1)
+        self.fc = nn.Linear(flat_features, 1)
+
+    def forward(self, x: torch.Tensor, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = torch.relu(self.conv(x)).reshape(x.shape[0], -1)
+        if extra is not None:
+            h = torch.cat([h, extra.to(h.dtype)], dim=-1)
+        return self.fc(h)  # [B, 1]

@@ -1,0 +1,74 @@
+"""Model registry: preset name -> constructed ``nn.Module``
+(tpumix/models/registry.py)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from tpumix_torch.config import ModelConfig
+from tpumix_torch.models.scalar import (
+    MixingModelScalar1s,
+    MixingModelScalar1sL,
+    MixingModelScalar2s,
+    MixingModelScalar2sL,
+)
+
+_SCALAR = {
+    "scalar1s": MixingModelScalar1s,
+    "scalar1sL": MixingModelScalar1sL,
+    "scalar2s": MixingModelScalar2s,
+    "scalar2sL": MixingModelScalar2sL,
+}
+
+# flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax-style init from an explicit generator: lecun-normal conv and dense
+    kernels, zero biases, BN at identity."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+    return model
+
+
+def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Construct the preset's model on the CPU with random weights drawn from
+    ``generator`` (a generator seeded 0 when None).
+
+    ``in_shape = (F, T)`` defaults to the preset's full spectrogram (1025
+    bins x the pinned frame count); it sizes the heads' dense layers.
+    ``conv_impl="auto"`` resolves to ``"xla"`` (F.conv2d): the JAX package's
+    TPU default, khgemm, is an XLA-level formulation that waits for ROADMAP.md
+    item 16."""
+    if cfg.name == "resnet18":
+        raise NotImplementedError(
+            "resnet18 is not ported yet (ROADMAP.md module item 10)"
+        )
+    if cfg.name not in _SCALAR:
+        raise ValueError(f"unknown model {cfg.name!r}; have {sorted(_SCALAR)}")
+    conv_impl = "xla" if cfg.conv_impl == "auto" else cfg.conv_impl
+    if in_shape is None:
+        in_shape = (cfg.frontend().num_bins, cfg.num_frames)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model = _SCALAR[cfg.name](
+        in_shape=in_shape, num_stems=cfg.num_stems, bn_momentum=cfg.bn_momentum,
+        use_dropout=cfg.use_dropout, conv_impl=conv_impl, compute_dtype=dtype,
+    )
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return init_weights(model, generator)
+
+
+def example_feature_shape(cfg: ModelConfig, batch: int = 1):
+    fe = cfg.frontend()
+    return (batch, cfg.num_stems, fe.num_bins, cfg.num_frames)
