@@ -6,6 +6,6 @@ setup(
     description="TPU-native automatic multitrack mixing framework (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests",)),
     # the PyTorch port builds its CUDA kernels from these sources at first use
-    package_data={"tpumix_torch": ["csrc/*.cu"]},
+    package_data={"tpumix_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
 )

@@ -113,8 +113,7 @@ def test_fft_path_matches_jax_fft(audio, hop):
 def test_dispatch_and_layouts(audio):
     x = torch.from_numpy(audio)
     cfg = FrontendConfig(hop_length=512)
-    assert cfg.resolved_implementation("cpu") == "dif"
-    assert cfg.resolved_implementation("cuda") == "dif"
+    assert cfg.resolved_implementation() == "dif_pallas"  # on every device
     tm = spectrogram_features_tm(x, cfg)
     np.testing.assert_array_equal(spectrogram_features(x, cfg).numpy(), tm.numpy().T)
     mag = stft_magnitude(x, cfg)
@@ -127,16 +126,16 @@ def test_dispatch_and_layouts(audio):
 
 
 def test_unported_frontends_raise_on_cuda():
-    # hop 64: DIF does not apply, but the JAX package would reach its DIT
-    # Pallas kernel on a TPU — ROADMAP.md kernels K3/K4
+    # hop 64: DIF does not apply; the DIT kernel (K4) takes it, as the JAX
+    # package's does on a TPU.  What still raises, on every device, are the
+    # XLA-level formulations (ROADMAP.md item 16).
     cfg = FrontendConfig(hop_length=64)
     assert not dif_applicable(cfg) and dif_applicable(FrontendConfig(hop_length=256))
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        cfg.resolved_implementation("cuda")
-    assert cfg.resolved_implementation("cpu") == "fft"
-    assert FrontendConfig(hop_length=500).resolved_implementation("cuda") == "fft"
-    with pytest.raises(NotImplementedError):
-        FrontendConfig(implementation="ct_pallas").resolved_implementation("cpu")
+    assert cfg.resolved_implementation() == "ct_pallas"
+    assert FrontendConfig(hop_length=500).resolved_implementation() == "fft"
+    assert FrontendConfig(implementation="ct_pallas").resolved_implementation() == "ct_pallas"
+    for impl in ("matmul", "ct"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FrontendConfig(implementation=impl).resolved_implementation()
     with pytest.raises(ValueError):
         stft_features_dif(torch.zeros(4096), FrontendConfig(hop_length=500))
-

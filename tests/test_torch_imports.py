@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "tpumix")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpumix")
 
 
 def _port_files():
@@ -45,9 +45,12 @@ def test_import_loads_no_jax_module():
         "before = set(sys.modules)\n"
         "import tpumix_torch, tpumix_torch.cli, tpumix_torch.infer.mixer, "
         "tpumix_torch.infer.catalog, tpumix_torch.ops.stft_dif, tpumix_torch.ops.conv_block, "
-        "tpumix_torch.ops._build, tpumix_torch.assets\n"
+        "tpumix_torch.ops.stft_basis, tpumix_torch.ops.stft_ct, tpumix_torch.ops._build, "
+        "tpumix_torch.assets, tpumix_torch.train, tpumix_torch.data.dataset, "
+        "tpumix_torch.data.prefetch\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpumix'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpumix'))\n"
         "print(len(new)); assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -83,6 +86,8 @@ def test_cli_device_flag_defaults_to_cuda():
     args = build_parser().parse_args(["mix", "--data", "x"])
     assert args.device == "cuda" and args.model == "scalar2s"
     assert args.transfer_dtype == "float32" and not args.device_mix
+    train = build_parser().parse_args(["train", "--data", "x"])
+    assert train.device == "cuda" and train.model == "scalar2s" and train.batch_size == 48
 
 
 def test_smoke_script_fails_outside_checkout(tmp_path):

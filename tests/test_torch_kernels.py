@@ -18,12 +18,26 @@ import torch
 
 from tpumix_torch.config import FrontendConfig
 from tpumix_torch.ops import _build
+import dataclasses
+
 from tpumix_torch.ops.conv_block import conv_block_fused, conv_block_fused_plain, fold_batchnorm
+from tpumix_torch.ops.stft import spectrogram_features_tm
+from tpumix_torch.ops.stft_basis import (
+    stft_features_basis,
+    stft_features_basis_plain,
+    stft_features_tm_hybrid,
+)
+from tpumix_torch.ops.stft_ct import (
+    stft_features_ct,
+    stft_features_ct_plain,
+    stft_features_ct_tm_hybrid,
+)
 from tpumix_torch.ops.stft_dif import (
     _dif_tables_f64,
     _kernel_tables,
     stft_features_dif,
     stft_features_dif_plain,
+    stft_features_dif_tm_hybrid,
 )
 
 
@@ -72,6 +86,87 @@ def test_dif_kernel_matches_plain(cuda_device, hop, tone):
     d = (got - stft_features_dif_plain(x, cfg)).abs().cpu().numpy()
     assert d.max() < 0.1 and d.mean() < 1e-4 and np.quantile(d, 0.999) < 5e-3
     assert bool((got[-1] == got[-1].flatten()[0]).all())
+
+
+# (wrapper, plain version, max-dB bound, hops) of the other two frontend kernels
+FRONTENDS = {
+    "basis": (stft_features_basis, stft_features_basis_plain, 0.2, (512, 8)),
+    "ct": (stft_features_ct, stft_features_ct_plain, 0.1, (512, 64)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tone", [0.03, 0.1, 0.3])  # 10 dB under, at and over the noise
+@pytest.mark.parametrize("name,which", [("basis", 0), ("basis", 1), ("ct", 0), ("ct", 1)])
+def test_frontend_kernel_matches_plain(cuda_device, name, which, tone):
+    kernel, plain, max_db, hops = FRONTENDS[name]
+    hop = hops[which]
+    cfg = FrontendConfig(hop_length=hop)
+    seconds = 2.0 if hop >= 64 else 0.1  # hop 8: 552 frames from 0.1 s
+    x = torch.from_numpy(_audio(seconds=seconds, tone=tone)).to(cuda_device)
+    before = kernel.launches
+    got = kernel(x, cfg)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (3, 1 + x.shape[-1] // hop, 1025) and got.dtype == torch.float32
+    d = (got - plain(x, cfg)).abs().cpu().numpy()
+    assert d.max() < max_db and d.mean() < 1e-4 and np.quantile(d, 0.999) < 5e-3
+    assert bool((got[-1] == got[-1].flatten()[0]).all())
+    # a silent row is the same float32 from every frontend kernel
+    silent = stft_features_dif(torch.zeros((1, 4096), device=cuda_device),
+                               FrontendConfig(hop_length=512))
+    assert float(got[-1].flatten()[0]) == float(silent.flatten()[0])
+    # "auto" picks this kernel by itself where the DIF kernel does not apply
+    if hop < 128:
+        before = kernel.launches
+        assert torch.equal(spectrogram_features_tm(x, cfg), got)
+        assert kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_basis_kernel_takes_another_n_fft(cuda_device):
+    cfg = FrontendConfig(n_fft=256, hop_length=32, sample_rate=8000, implementation="pallas")
+    x = torch.from_numpy(_audio(rows=5, seconds=0.2)).to(cuda_device)
+    got = stft_features_basis(x, cfg)
+    assert got.shape == (5, 1 + x.shape[-1] // 32, 129)
+    d = (got - stft_features_basis_plain(x, cfg)).abs()
+    assert float(d.max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_frontend_kernels_reject_what_they_cannot_take(cuda_device):
+    x = torch.zeros(8192, device=cuda_device)
+    for kernel in (stft_features_basis, stft_features_ct):
+        with pytest.raises(TypeError):
+            kernel(x.double(), FrontendConfig(hop_length=512))
+    with pytest.raises(ValueError, match="n_fft=2048"):
+        stft_features_ct(x, FrontendConfig(n_fft=4096, hop_length=512))
+    with pytest.raises(ValueError, match="n_fft % 16"):
+        stft_features_basis(x, FrontendConfig(n_fft=40, hop_length=8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hybrid,kernel", [
+    (stft_features_dif_tm_hybrid, stft_features_dif),
+    (stft_features_ct_tm_hybrid, stft_features_ct),
+    (stft_features_tm_hybrid, stft_features_basis),
+])
+def test_hybrid_is_kernel_forward_and_fft_backward(cuda_device, hybrid, kernel):
+    cfg = FrontendConfig(hop_length=512)
+    x0 = torch.from_numpy(_audio(rows=2, tone=0.1)).to(cuda_device)
+    x0[-1] = x0[0].flip(-1)  # no silent row: its gradient is the clamp's zero
+    weights = torch.randn((2, 173, 1025), device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(5))
+    x = x0.clone().requires_grad_(True)
+    before = kernel.launches
+    y = hybrid(x, cfg)
+    (y * weights).sum().backward()
+    assert kernel.launches == before + 1  # none in the backward
+    assert torch.equal(y.detach(), kernel(x0, cfg))
+    xf = x0.clone().requires_grad_(True)
+    fft_cfg = dataclasses.replace(cfg, implementation="fft")
+    (spectrogram_features_tm(xf, fft_cfg) * weights).sum().backward()
+    assert float((x.grad - xf.grad).abs().max()) <= 1e-6 * float(xf.grad.abs().max())
 
 
 @pytest.mark.cuda
@@ -131,14 +226,20 @@ def test_wrappers_take_the_plain_version_on_cpu():
     cbefore = conv_block_fused.launches
     torch.testing.assert_close(conv_block_fused(xb, w, s, t), conv_block_fused_plain(xb, w, s, t))
     assert stft_features_dif.launches == before and conv_block_fused.launches == cbefore
+    for kernel, plain in ((stft_features_basis, stft_features_basis_plain),
+                          (stft_features_ct, stft_features_ct_plain)):
+        kbefore = kernel.launches
+        torch.testing.assert_close(kernel(x, cfg), plain(x, cfg))
+        assert kernel.launches == kbefore
 
 
 def test_other_devices_raise():
     meta = torch.zeros((1, 12, 11, 8), device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         conv_block_fused(meta, meta, meta, meta)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        stft_features_dif(torch.zeros(4096, device="meta"), FrontendConfig(hop_length=512))
+    for kernel in (stft_features_dif, stft_features_basis, stft_features_ct):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            kernel(torch.zeros(4096, device="meta"), FrontendConfig(hop_length=512))
 
 
 def test_kernel_tables_are_the_float64_tables_in_flat_order():
@@ -166,9 +267,13 @@ def test_build_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
     assert {"-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared"} <= set(_build.NVCC_FLAGS)
     a = _build.library_path("stft_dif")
     assert a != _build.library_path("conv_block")
+    assert set(_build.SIGNATURES) == {"stft_dif", "conv_block", "stft_basis", "stft_ct"}
     (tmp_path / "stft_dif.cu").write_text("// changed source\n")
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
-    assert _build.library_path("stft_dif") != a
+    b = _build.library_path("stft_dif")
+    assert b != a
+    (tmp_path / "dft_common.cuh").write_text("// a shared header is part of the key\n")
+    assert _build.library_path("stft_dif") != b
 
 
 def test_ctypes_signatures_pass_pointers_as_void_p():

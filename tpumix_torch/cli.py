@@ -1,15 +1,19 @@
 """tpumix_torch command-line interface.
 
-    python -m tpumix_torch mix     mix one song (or a catalogue) with a checkpoint
+    python -m tpumix_torch train              train a gain model
+    python -m tpumix_torch export-checkpoint  run checkpoint -> compact inference .npz
+    python -m tpumix_torch mix                mix one song (or a catalogue) with a checkpoint
 
-The ``mix`` flags are those of ``python -m tpumix mix`` plus ``--device``
-(``cuda`` by default; ``cpu`` runs the kernels' plain versions).
+The flags are those of the same ``python -m tpumix`` commands plus ``--device``
+(``cuda`` by default; ``cpu`` runs the kernels' plain versions).  ``train``
+lacks ``--mesh`` and ``--device-corpus`` (ROADMAP.md items 15 and 14).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -28,22 +32,52 @@ def _songlist(args) -> list:
 
 
 def _load_variables(checkpoint: str):
-    """Inference variables from a shipped artifact name or an ``.npz`` file."""
+    """Inference variables (``{"params", "batch_stats"}`` numpy trees) from
+    any checkpoint spelling: a shipped artifact name, an ``.npz`` file, a
+    trainer run directory (its best-scored kept epoch) or one ``epoch_NNNN``
+    directory of a run."""
     from tpumix_torch.assets import checkpoint_path
-    from tpumix_torch.models.convert import load_npz
+    from tpumix_torch.models.convert import load_npz, state_dict_to_jax
 
     if not os.path.exists(checkpoint) and "/" not in checkpoint:
         try:
             checkpoint = checkpoint_path(checkpoint.removesuffix(".npz"))
         except FileNotFoundError:
-            pass
-    if not checkpoint.endswith(".npz"):
+            pass  # fall through to the path-based error below
+    if checkpoint.endswith(".npz"):
+        return load_npz(checkpoint)
+    state_file = os.path.join(_resolve_run_dir(checkpoint), "state.pt")
+    if not os.path.exists(state_file):
         raise SystemExit(
-            f"--checkpoint {checkpoint!r}: the port reads shipped artifact names "
-            "and .npz files; Orbax run directories need the JAX package "
-            "(python -m tpumix export-checkpoint writes an .npz)"
+            f"--checkpoint {checkpoint!r}: not a shipped artifact name, an .npz file or a "
+            "run / epoch directory written by `python -m tpumix_torch train` (Orbax "
+            "directories of the JAX package: python -m tpumix export-checkpoint)"
         )
-    return load_npz(checkpoint)
+    import torch
+
+    saved = torch.load(state_file, map_location="cpu", weights_only=True)
+    return state_dict_to_jax(saved["model"])
+
+
+def _resolve_run_dir(checkpoint: str) -> str:
+    """A trainer RUN directory resolves to its best-scored kept epoch (ledger
+    written by Trainer.save_checkpoint; higher score = better, -val_loss or
+    -train_mse by TrainConfig.checkpoint_score); anything else passes through
+    untouched."""
+    scores_path = os.path.join(checkpoint, "scores.json")
+    if not os.path.exists(scores_path):
+        return checkpoint
+    with open(scores_path) as f:
+        scores = {int(k): float(v) for k, v in json.load(f).items()}
+    kept = {
+        ep: s for ep, s in scores.items()
+        if os.path.isdir(os.path.join(checkpoint, f"epoch_{ep:04d}"))
+    }
+    if not kept:
+        return checkpoint
+    best = max(kept, key=kept.get)
+    print(f"[checkpoint] run dir given; using best-scored epoch {best}", flush=True)
+    return os.path.join(checkpoint, f"epoch_{best:04d}")
 
 
 def _load_mixer(args):
@@ -71,6 +105,125 @@ def _load_mixer(args):
     return SongMixer(model, cfg, transfer_dtype=args.transfer_dtype, device=args.device)
 
 
+def _warn_if_lstsq_degenerate(val_loader) -> None:
+    """Loud guard for a silent task killer: on corpora in the MUSDB18
+    convention — ``mixture.wav`` is the PLAIN SUM of the stem files — the
+    closed-form lstsq gain targets are identically zero (unity gains), so
+    lstsq-family self-supervision learns the constant predictor.  Probes one
+    UNAUGMENTED validation batch: engineer-scaled corpora measure mean
+    |target| ~1e-3 scalar units; real mixing gains measure ~0.2+."""
+    import numpy as np
+    import torch
+
+    from tpumix_torch.train.state import _lstsq_gain_targets
+
+    try:
+        stems0, mix0 = next(iter(val_loader))
+    except StopIteration:
+        return
+    g0 = _lstsq_gain_targets(torch.as_tensor(np.asarray(stems0), dtype=torch.float32),
+                             torch.as_tensor(np.asarray(mix0), dtype=torch.float32))
+    mean_abs = float(g0.abs().mean())
+    if mean_abs < 0.02:
+        print(
+            "[train] WARNING: closed-form gain targets on a validation batch "
+            f"are ~zero (mean |target| = {mean_abs:.4f} scalar "
+            "units) — mixture.wav looks like the plain sum of the stem files, "
+            "which makes lstsq-family self-supervision DEGENERATE (the model "
+            "learns the constant unity-gain predictor).  Supervise raw "
+            "multitrack stems against the engineer's mix instead, or use "
+            "--loss reference.",
+            flush=True,
+        )
+
+
+def cmd_train(args) -> int:
+    import torch
+
+    from tpumix_torch.config import TrainConfig, preset
+    from tpumix_torch.data.dataset import MultitrackAudioDataset
+    from tpumix_torch.data.loaders import discover_songs, split_songlist
+    from tpumix_torch.data.prefetch import BatchIterator
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.train.trainer import Trainer, resolve_patience
+
+    model_cfg = dataclasses.replace(preset(args.model), compute_dtype=args.compute_dtype,
+                                    bn_momentum=args.bn_momentum)
+    # no songlist -> discover songs exactly as the dataset would, so the
+    # train/val split still happens
+    songs = _songlist(args) or discover_songs(args.data)
+    train_songs, val_songs, _ = split_songlist(
+        songs, (1 - args.val_fraction, args.val_fraction, 0.0), seed=args.seed
+    )
+    if not train_songs:
+        # an empty list would read as "discover everything" downstream
+        raise SystemExit(
+            f"--val-fraction {args.val_fraction} leaves no training songs "
+            f"({len(songs)} total); lower it or provide more songs"
+        )
+
+    def make_ds(sl, augment):
+        return MultitrackAudioDataset(
+            args.data, songlist=sl, chunk_length=model_cfg.chunk_length_s,
+            seed=args.seed, layout=args.layout, hop_length=model_cfg.hop_length,
+            augment_data=augment,
+        )
+
+    # validation data is NEVER augmented (random val gains would bias the
+    # early-stopping signal; the reference never augments validation)
+    if not val_songs:
+        print("[train] WARNING: validation split is empty at this "
+              "--val-fraction; validating on the training songs")
+        val_songs = train_songs
+    d_train = make_ds(train_songs, args.augment)
+    d_val = make_ds(val_songs, False)
+
+    # cosine needs the total step count up front; the loader's epoch length
+    # is deterministic (drop_last static batches over the train chunk count)
+    steps_per_epoch = max(1, len(d_train) // args.batch_size)
+    cfg = TrainConfig(
+        batch_size=args.batch_size, learning_rate=args.lr, num_epochs=args.epochs,
+        checkpoint_dir=args.checkpoint_dir, seed=args.seed, augment=False,
+        checkpoint_score=args.checkpoint_score,
+        augment_mix=not args.augment_stems_only,
+        early_stopping_patience=resolve_patience(args.patience, args.loss),
+        keep_checkpoints=args.keep_checkpoints, loss=args.loss,
+        transfer_dtype=args.transfer_dtype,
+        lr_schedule=args.lr_schedule,
+        lr_total_steps=(args.epochs * steps_per_epoch
+                        if args.lr_schedule == "cosine" else None),
+    )
+    # parameter init and dropout masks: both from --seed (dropout draws from
+    # torch's global generator, train/state.py)
+    torch.manual_seed(args.seed)
+    model = build_model(model_cfg, generator=torch.Generator().manual_seed(args.seed),
+                        for_training=True)
+    trainer = Trainer(model, model_cfg.frontend(), cfg, run_name=args.run_name,
+                      device=args.device)
+    train_loader = BatchIterator(d_train, args.batch_size, seed=args.seed)
+    val_loader = BatchIterator(d_val, args.batch_size, shuffle=False, seed=args.seed)
+    if args.loss.startswith("lstsq"):
+        _warn_if_lstsq_degenerate(val_loader)
+    start = trainer.resume() if args.resume else 0
+    result = trainer.fit(train_loader, val_loader, start, args.epochs)
+    print(json.dumps({
+        "best_epoch": result.best_epoch, "best_val_loss": result.best_val_loss,
+        "stopped_early": result.stopped_early, "checkpoint_dir": trainer.ckpt_dir,
+    }))
+    return 0
+
+
+def cmd_export_checkpoint(args) -> int:
+    """Run checkpoint -> compact inference .npz (params + batch_stats only;
+    drops optimiser state), in the tree the JAX package's ``load_npz`` reads."""
+    from tpumix_torch.models.convert import save_npz
+
+    variables = _load_variables(args.checkpoint)
+    save_npz(args.out, variables["params"], variables["batch_stats"])
+    print(json.dumps({"out": args.out, "bytes": os.path.getsize(args.out)}))
+    return 0
+
+
 def cmd_mix(args) -> int:
     from tpumix_torch.infer.catalog import mix_catalog
 
@@ -82,30 +235,87 @@ def cmd_mix(args) -> int:
     return 0
 
 
+_MODELS = ["scalar1s", "scalar1sL", "scalar2s", "scalar2sL", "resnet18"]
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tpumix_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
 
+    def common(sp, checkpoint=True):
+        sp.add_argument("--data", required=True, help="dataset root directory")
+        sp.add_argument("--layout", default="medleydb", choices=["medleydb", "musdb18"])
+        sp.add_argument("--songlist", default="", help="text file, one song per line")
+        sp.add_argument("--model", default="scalar2s", choices=_MODELS)
+        sp.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                        help="conv trunk dtype; float32 is the conformance dtype")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--transfer-dtype", default="float32",
+                        choices=["float32", "int16", "int12", "mulaw8"])
+        sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+        if checkpoint:
+            sp.add_argument("--checkpoint", default="",
+                            help="shipped artifact name, .npz file, or a run / epoch "
+                                 "directory of `train`")
+
+    sp = sub.add_parser("train", help="train a gain model")
+    common(sp, checkpoint=False)
+    sp.add_argument("--epochs", type=int, default=20,
+                    help="TOTAL epochs for the run; a --resume continues to this total, "
+                         "it does not add this many more")
+    sp.add_argument("--batch-size", type=int, default=48)
+    sp.add_argument("--lr", type=float, default=1e-3)
+    sp.add_argument("--val-fraction", type=float, default=0.2)
+    sp.add_argument("--patience", type=int, default=None,
+                    help="early-stopping patience; default is per-loss (lstsq family: 30 — "
+                         "its val curve has a mid-run plateau that patience 10 stops at; "
+                         "others: 10, ignite parity)")
+    sp.add_argument("--keep-checkpoints", type=int, default=None)
+    sp.add_argument("--checkpoint-score", default="train", choices=["train", "val"],
+                    help="keep-best-k ranking: 'train' = ignite parity (-train_mse); 'val' "
+                         "keeps the best VALIDATION epochs — use for runs whose best-val "
+                         "checkpoint will be exported as an inference artifact")
+    sp.add_argument("--checkpoint-dir", default="./checkpoints")
+    sp.add_argument("--run-name", default=None)
+    sp.add_argument("--augment", action="store_true")
+    sp.add_argument("--augment-stems-only", action="store_true",
+                    help="with --augment: re-gain only the stems, keep the supervision mix "
+                         "clean (reference parity augments all five tracks; the independent "
+                         "mix gain is unobservable from the stems, which makes lstsq-family "
+                         "targets noisy)")
+    sp.add_argument("--loss", default="reference",
+                    choices=["reference", "roundtrip", "coherent", "lstsq", "lstsq_tail",
+                             "lstsq_tail_cm"],
+                    help="reference = dB-linear masked-sum MSE (parity); roundtrip = gains "
+                         "supervised through the inference map")
+    sp.add_argument("--bn-momentum", type=float, default=0.10,
+                    help="BN retained fraction (flax convention); 0.10 (default) = the "
+                         "reference's torch momentum 0.90 — running stats track the LAST "
+                         "batch, which makes eval-mode val loss (and early stopping) noisy "
+                         "on small corpora; raise towards 0.99 for stable statistics")
+    sp.add_argument("--lr-schedule", default="constant", choices=["constant", "cosine"],
+                    help="constant = reference parity; cosine decays lr -> 0.01x over "
+                         "epochs x steps-per-epoch")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in the run dir (requires "
+                         "--run-name)")
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("export-checkpoint",
+                        help="run checkpoint -> compact inference .npz")
+    sp.add_argument("--checkpoint", required=True, help="run or epoch directory of `train`")
+    sp.add_argument("--out", required=True, help="output .npz path")
+    sp.set_defaults(fn=cmd_export_checkpoint)
+
     sp = sub.add_parser("mix", help="mix songs with a trained model")
-    sp.add_argument("--data", required=True, help="dataset root directory")
-    sp.add_argument("--layout", default="medleydb", choices=["medleydb", "musdb18"])
-    sp.add_argument("--songlist", default="", help="text file, one song per line")
-    sp.add_argument("--model", default="scalar2s",
-                    choices=["scalar1s", "scalar1sL", "scalar2s", "scalar2sL", "resnet18"])
-    sp.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="conv trunk dtype; float32 is the conformance dtype")
-    sp.add_argument("--seed", type=int, default=0, help="random-init seed (no checkpoint)")
-    sp.add_argument("--transfer-dtype", default="float32",
-                    choices=["float32", "int16", "int12", "mulaw8"])
-    sp.add_argument("--checkpoint", default="", help="shipped artifact name or .npz file")
+    common(sp)
     sp.add_argument("--song", default="", help="single song name")
     sp.add_argument("--out", default="./mixed")
     sp.add_argument("--naive-sum", action="store_true", help="also export raw stem sums")
     sp.add_argument("--device-mix", action="store_true",
                     help="run smoothing epilogue + mixdown on the device (writes the "
                          "mono downmix)")
-    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     sp.set_defaults(fn=cmd_mix)
     return p
 

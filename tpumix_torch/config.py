@@ -1,16 +1,23 @@
-"""Configuration dataclasses (copy of tpumix/config.py:20-155, 222-234).
+"""Configuration dataclasses (copy of tpumix/config.py).
 
 Kept as a copy, not an import: the port imports nothing of ``tpumix``.  The
-one behavioural difference is :meth:`FrontendConfig.resolved_implementation`,
-which takes the device the features will be computed on.
+one behavioural difference is :meth:`FrontendConfig.resolved_implementation`:
+``"auto"`` picks the best applicable fused frontend on every device (the
+hand-written kernel on cuda, its plain torch version on the CPU), where the
+JAX package does so on TPU backends only.  ``TrainConfig`` keeps its mesh
+fields for the day the port trains across cards (ROADMAP.md item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 _DIF_BLOCK = 128  # contiguous block size of the DIF split (n = 128*n1 + n2)
+_CT_N1 = 16  # phase count of the DIT split (n = 16*n2 + p)
+
+# concrete implementations, under the JAX package's names
+_IMPLEMENTATIONS = ("dif_pallas", "ct_pallas", "pallas", "fft")
 
 
 def dif_applicable(cfg: "FrontendConfig") -> bool:
@@ -27,6 +34,18 @@ def dif_applicable(cfg: "FrontendConfig") -> bool:
     )
 
 
+def ct_applicable(cfg: "FrontendConfig") -> bool:
+    """The DIT factorization needs reshape-only framing (``n_fft % hop ==
+    0``) and phase decimation that lands on whole rows (``hop % 16 == 0``)
+    (tpumix/ops/stft.py:126-134)."""
+    return (
+        cfg.n_fft % cfg.hop_length == 0
+        and cfg.hop_length % _CT_N1 == 0
+        and cfg.n_fft % _CT_N1 == 0
+        and cfg.center
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """STFT -> dB-magnitude feature frontend: ``torch.stft`` (periodic Hann,
@@ -39,37 +58,44 @@ class FrontendConfig:
     db_multiplier: float = 20.0
     center: bool = True
     pad_mode: str = "reflect"
-    # "auto": the DIF factorized frontend where it applies (the hand-written
-    #         kernel on cuda, its plain torch version on the CPU), else "fft"
-    # "dif" : the DIF factorized frontend (tpumix_torch/ops/stft_dif.py)
-    # "fft" : torch.stft
+    # "auto"      : the best applicable fused frontend, in the JAX package's
+    #               TPU order: dif_pallas -> ct_pallas -> pallas, else "fft"
+    # "dif_pallas": decimation-in-frequency factorized frontend
+    #               (tpumix_torch/ops/stft_dif.py; "dif" is an alias)
+    # "ct_pallas" : decimation-in-time factorized frontend
+    #               (tpumix_torch/ops/stft_ct.py)
+    # "pallas"    : naive windowed-basis frontend, any n_fft % hop == 0
+    #               (tpumix_torch/ops/stft_basis.py)
+    # "fft"       : torch.stft
+    # The names are the JAX package's, so one config selects the same
+    # algorithm in both.  Each fused frontend is a hand-written kernel on
+    # cuda and its plain torch version on the CPU.
     implementation: str = "auto"
 
-    def resolved_implementation(self, device=None) -> str:
-        """Concrete implementation for features computed on ``device``.
-
-        A config that the JAX package would send to its naive-basis or DIT
-        Pallas kernels on a TPU (``n_fft % hop == 0`` but not DIF-applicable)
-        has no Hopper kernel yet (ROADMAP.md kernels K3/K4) and raises on
-        cuda rather than silently running another algorithm."""
-        impl = self.implementation
-        if impl not in ("auto", "dif", "fft"):
+    def resolved_implementation(self) -> str:
+        """Concrete implementation, one of ``"dif_pallas"``, ``"ct_pallas"``,
+        ``"pallas"``, ``"fft"``; the same on every device.  The XLA-level
+        formulations ``"matmul"`` and ``"ct"`` of the JAX package are not
+        ported (ROADMAP.md item 16)."""
+        impl = "dif_pallas" if self.implementation == "dif" else self.implementation
+        if impl in ("matmul", "ct"):
             raise NotImplementedError(
-                f"frontend implementation {impl!r} is not ported; have 'auto', "
-                "'dif', 'fft' (the naive-basis and DIT kernels are ROADMAP.md "
-                "kernels K3/K4)"
+                f"frontend implementation {impl!r} (an XLA-level formulation of "
+                "the JAX package) is not ported: ROADMAP.md item 16"
             )
-        if impl != "auto":
+        if impl in _IMPLEMENTATIONS:
             return impl
-        if dif_applicable(self):
-            return "dif"
-        on_cuda = device is not None and str(device).startswith("cuda")
-        if on_cuda and self.n_fft % self.hop_length == 0:
-            raise NotImplementedError(
-                f"hop {self.hop_length} needs the naive-basis or DIT frontend "
-                "kernel, which is not ported yet (ROADMAP.md kernels K3/K4); "
-                "pass implementation='fft' to use torch.stft"
+        if impl != "auto":
+            raise ValueError(
+                f"unknown frontend implementation {impl!r}; have 'auto', 'dif', "
+                f"{_IMPLEMENTATIONS}"
             )
+        if dif_applicable(self):
+            return "dif_pallas"
+        if ct_applicable(self):
+            return "ct_pallas"
+        if self.n_fft % self.hop_length == 0:
+            return "pallas"
         return "fft"
 
     @property
@@ -143,3 +169,54 @@ class MixConfig:
     savgol_window: Optional[int] = None
     # chunks per device call: one fixed-shape segment serves any song length
     max_chunks: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration (parity targets: reference model_trainer.py
+    and training_ignite.ipynb cells 12-15)."""
+
+    batch_size: int = 48
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-5  # Adam L2 (torch-style coupled), training.ipynb cell 11
+    num_epochs: int = 20
+    # early-stopping patience; None resolves per-loss in the trainer
+    # (train.trainer.resolve_patience): 30 for the lstsq family, else 10
+    early_stopping_patience: Optional[int] = None
+    checkpoint_dir: str = "./checkpoints"
+    keep_checkpoints: Optional[int] = None  # None = keep all (ignite n_saved=None)
+    # keep-best-k scoring: "train" = ignite parity (-train_mse); "val" keeps
+    # the best validation epochs
+    checkpoint_score: str = "train"
+    # "constant" = reference parity; "cosine" decays learning_rate -> 0.01x
+    # over lr_total_steps (required for cosine)
+    lr_schedule: str = "constant"
+    lr_total_steps: Optional[int] = None
+    seed: int = 0
+    log_every_steps: int = 30  # ignite iteration logging cadence (cell 14)
+    augment: bool = False
+    # reference parity: augmentation re-gains ALL FIVE tracks, the mix
+    # included (reference data/dataset.py:185-199).  False keeps the
+    # supervision mix clean — required for the lstsq-family objectives under
+    # augmentation (an independent mix gain is unobservable from the stems)
+    augment_mix: bool = True
+    # "reference", "roundtrip", "coherent", "lstsq", "lstsq_tail",
+    # "lstsq_tail_cm" (tpumix_torch.train.state.SELF_SUPERVISED_LOSSES), or
+    # "gain": direct MSE on generator gain labels (make_gain_train_step)
+    loss: str = "reference"
+    # "int16": ship waveform batches as 16-bit PCM with on-device
+    # dequantisation; "mulaw8": int8 mu-law
+    transfer_dtype: str = "float32"
+    mesh_shape: Tuple[int, ...] = (1,)  # data-parallel axis sizes (ROADMAP.md item 15)
+    mesh_axis_names: Tuple[str, ...] = ("dp",)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    base_path: str = ""
+    layout: str = "medleydb"  # or "musdb18"
+    chunk_length_s: float = 1.0
+    sample_rate: int = 44100
+    normalize: bool = False
+    augment: bool = False
+    seed: Optional[int] = None

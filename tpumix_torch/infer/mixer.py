@@ -122,7 +122,7 @@ class SongMixer:
         self.model_cfg = model_cfg
         self.mix_cfg = mix_cfg or MixConfig(chunk_length_s=model_cfg.chunk_length_s)
         self.frontend = model_cfg.frontend()
-        self.frontend.resolved_implementation(self.device)  # raise early if not ported
+        self.frontend.resolved_implementation()  # raise early if not ported
         self.chunk_samples = self.frontend.chunk_samples(model_cfg.chunk_length_s)
         self.transfer_dtype = transfer_dtype
         self._packer: Optional[ThreadPoolExecutor] = None

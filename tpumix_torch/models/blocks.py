@@ -3,7 +3,8 @@
 ConvBlock2d is Conv2d(VALID) -> BatchNorm(eps 1e-3, torch momentum 0.90 ==
 flax retained fraction 0.10) -> ReLU -> Dropout (train only), reference
 model_scalar_1s.py:151-190.  The trunk runs in ``torch.channels_last``, so the
-NHWC view the fused kernel takes is free.
+NHWC view the fused kernel takes is free.  In training mode every block is
+``F.conv2d`` + BN + ReLU (+ dropout); the fused kernel is inference only.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tpumix_torch.ops.conv_block import conv_block_fused, fold_batchnorm
 
@@ -20,6 +22,34 @@ BN_EPS = 1e-3
 
 def _pair(k: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
     return (k, k) if isinstance(k, int) else tuple(k)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows the JAX package.
+
+    Both frameworks normalise a training batch with its biased variance, but
+    flax folds that same *biased* variance into ``batch_stats/var`` while
+    torch folds the *unbiased* one (x n/(n-1)) into ``running_var``.  The
+    running statistics travel: an exported ``.npz`` is read by tpumix and its
+    checkpoints are read here, so the port keeps flax's.  The difference is
+    1/n of the variance: invisible at the full width (n = 48*511*85 after
+    block 1), visible on small batches."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        # torch folds the unbiased variance into a copy (which autograd keeps
+        # for the backward); the biased one is folded into the buffer from it
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+        return y
 
 
 class ConvBlock2d(nn.Module):
@@ -43,7 +73,7 @@ class ConvBlock2d(nn.Module):
                               dilation=dilation, padding=0)
         # flax momentum is the retained fraction of the running stats; torch's
         # is the new batch's share
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
+        self.bn = BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
         self.dropout = nn.Dropout(dropout_p) if dropout_p > 0 else None
         self.conv_impl = conv_impl
 

@@ -1,7 +1,11 @@
-"""Checkpoints: the npz reader and the flax -> torch name and layout map.
+"""Checkpoints: the npz reader and writer and the flax <-> torch name and
+layout maps.
 
-Copies of tpumix/models/convert.py:74-97 (``flax_scalar_to_torch``) and
-:129-153 (``_unflatten`` / ``load_npz``); the port imports nothing of tpumix.
+Copies of tpumix/models/convert.py:36-97 (``torch_scalar_to_flax``,
+``flax_scalar_to_torch``) and :120-153 (``_flatten`` / ``_unflatten`` /
+``save_npz`` / ``load_npz``); the port imports nothing of tpumix.  An ``.npz``
+written here from a port-trained model is the tree tpumix's ``load_npz``
+reads.
 
 Layout maps: conv kernels flax ``[kh, kw, in, out]`` -> torch ``[out, in, kh,
 kw]``; dense kernels ``[in, out]`` -> ``[out, in]``.  The head flatten order
@@ -11,7 +15,7 @@ coincides between NCHW and NHWC because the head conv has one output channel.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +25,45 @@ def _np(x) -> np.ndarray:
     if hasattr(x, "detach"):
         x = x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def torch_scalar_to_flax(state_dict: Mapping[str, Any], num_blocks: int = 5,
+                         num_heads: int = 4) -> Tuple[Dict, Dict]:
+    """Reference-named scalar-model ``state_dict`` -> flax ``(params,
+    batch_stats)`` trees of numpy arrays (the inverse of
+    :func:`flax_scalar_to_torch`)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(1, num_blocks + 1):
+        blk = f"conv_b{i}"
+        params[blk] = {
+            "conv": {
+                "kernel": _np(state_dict[f"{blk}.conv.weight"]).transpose(2, 3, 1, 0),
+                "bias": _np(state_dict[f"{blk}.conv.bias"]),
+            },
+            "bn": {
+                "scale": _np(state_dict[f"{blk}.batch_norm.weight"]),
+                "bias": _np(state_dict[f"{blk}.batch_norm.bias"]),
+            },
+        }
+        stats[blk] = {
+            "bn": {
+                "mean": _np(state_dict[f"{blk}.batch_norm.running_mean"]),
+                "var": _np(state_dict[f"{blk}.batch_norm.running_var"]),
+            }
+        }
+    for i in range(1, num_heads + 1):
+        params[f"head{i}"] = {
+            "conv": {
+                "kernel": _np(state_dict[f"conv_head{i}.weight"]).transpose(2, 3, 1, 0),
+                "bias": _np(state_dict[f"conv_head{i}.bias"]),
+            },
+            "fc": {
+                "kernel": _np(state_dict[f"fc_head{i}.weight"]).T,
+                "bias": _np(state_dict[f"fc_head{i}.bias"]),
+            },
+        }
+    return params, stats
 
 
 def flax_scalar_to_torch(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
@@ -68,6 +111,28 @@ def reference_to_port_names(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+# the port module's names -> reference torch names (inverse of the above)
+_PORT_TO_REFERENCE = (
+    (re.compile(r"^(conv_b\d+)\.bn\."), r"\1.batch_norm."),
+    (re.compile(r"^head(\d+)\.conv\."), r"conv_head\1."),
+    (re.compile(r"^head(\d+)\.fc\."), r"fc_head\1."),
+)
+
+
+def state_dict_to_jax(state_dict: Mapping[str, Any], num_blocks: int = 5,
+                      num_heads: int = 4) -> Dict[str, Any]:
+    """The ``state_dict`` of the port's scalar model -> JAX ``{"params",
+    "batch_stats"}`` trees (numpy leaves); the inverse of
+    :func:`state_dict_from_jax`."""
+    ref = {}
+    for key, val in state_dict.items():
+        for pat, repl in _PORT_TO_REFERENCE:
+            key = pat.sub(repl, key)
+        ref[key] = val
+    params, stats = torch_scalar_to_flax(ref, num_blocks, num_heads)
+    return {"params": params, "batch_stats": stats}
+
+
 def state_dict_from_jax(variables: Mapping[str, Any], num_blocks: int = 5,
                         num_heads: int = 4) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` trees (numpy leaves) -> the
@@ -81,6 +146,15 @@ def state_dict_from_jax(variables: Mapping[str, Any], num_blocks: int = 5,
     return sd
 
 
+def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for key, val in tree.items():
+        path = f"{prefix}/{key}"
+        if isinstance(val, Mapping):
+            _flatten(val, path, out)
+        else:
+            out[path] = _np(val)
+
+
 def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for path, val in flat.items():
@@ -90,6 +164,15 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return tree
+
+
+def save_npz(path: str, params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> None:
+    """Write inference variables as a single compressed ``.npz`` of flat
+    ``params/<path>`` and ``batch_stats/<path>`` arrays."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(params, "params", flat)
+    _flatten(batch_stats or {}, "batch_stats", flat)
+    np.savez_compressed(path, **flat)
 
 
 def load_npz(path: str) -> Dict[str, Any]:

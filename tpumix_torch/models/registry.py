@@ -41,9 +41,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None,
+                for_training: bool = False) -> nn.Module:
     """Construct the preset's model on the CPU with random weights drawn from
-    ``generator`` (a generator seeded 0 when None).
+    ``generator`` (a generator seeded 0 when None), in eval mode, or in
+    training mode (dropout on, batch statistics) when ``for_training``.  In
+    training mode every block runs ``F.conv2d`` whatever ``conv_impl`` says:
+    the fused kernel is inference only (blocks.py ``_fused_eligible``).
 
     ``in_shape = (F, T)`` defaults to the preset's full spectrogram (1025
     bins x the pinned frame count); it sizes the heads' dense layers.
@@ -66,7 +70,7 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
     )
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_weights(model, generator)
+    return init_weights(model, generator).train(for_training)
 
 
 def example_feature_shape(cfg: ModelConfig, batch: int = 1):

@@ -43,6 +43,7 @@ class _ScalarModelBase(nn.Module):
         the heads' dense layers (the reference's flattened head dims)."""
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.bn_momentum = bn_momentum  # read by the trainer's short-run warning
 
         def block(cin, f, k, s=1, d=1, p=0.2):
             return ConvBlock2d(cin, f, k, strides=s, dilation=d,

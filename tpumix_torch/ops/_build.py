@@ -2,7 +2,8 @@
 
 Each ``tpumix_torch/csrc/<name>.cu`` compiles with nvcc into a shared library
 with a plain C interface, at first use, into ``tpumix_torch/_build/`` under a
-name keyed on a hash of the source and flags, and loads with ctypes.  A build
+name keyed on a hash of the source, the shared headers and the flags, and
+loads with ctypes.  A build
 uses only the sources in the package.  ``build()`` compiles several sources
 at once, one nvcc process each.
 """
@@ -35,6 +36,11 @@ SIGNATURES = {
     "stft_dif": ("stft_dif_launch",
                  (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_double, _P)),
     "conv_block": ("conv_block_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "stft_basis": ("stft_basis_launch",
+                   (_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, ctypes.c_float,
+                    ctypes.c_double, _P)),
+    "stft_ct": ("stft_ct_launch",
+                (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_double, _P)),
 }
 
 
@@ -51,9 +57,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Keyed on the source, every shared header (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:

@@ -5,12 +5,17 @@ hop_length=H, window=hann(2048) periodic, center=True, reflect,
 onesided)`` -> abs -> ``20*log10(max(|X|, 1e-5))``; ``[n_bins, frames]`` per
 signal, ``1 + len // H`` frames.
 
-Implementations behind one signature (``FrontendConfig.implementation``):
+Implementations behind one signature (``FrontendConfig.implementation``,
+under the JAX package's names).  The three fused frontends compute dB
+features directly, each as a hand-written CUDA kernel on the card and its
+plain torch version on the CPU; ``"auto"`` picks the first that applies:
 
-* ``"dif"`` — the decimation-in-frequency factorized frontend
-  (tpumix_torch/ops/stft_dif.py): the hand-written CUDA kernel on the card,
-  its plain torch version on the CPU.  ``"auto"`` picks it wherever it
-  applies (every model preset).
+* ``"dif_pallas"`` — decimation-in-frequency factorized
+  (tpumix_torch/ops/stft_dif.py); every model preset.
+* ``"ct_pallas"`` — decimation-in-time factorized
+  (tpumix_torch/ops/stft_ct.py); hops that are multiples of 16 but not of 128.
+* ``"pallas"`` — the naive windowed basis (tpumix_torch/ops/stft_basis.py);
+  any ``n_fft % hop == 0``.
 * ``"fft"`` — ``torch.stft``, as the JAX ``fft`` path is XLA's FFT.
 
 All entry points accept arbitrary leading batch dims over the last (sample)
@@ -47,6 +52,18 @@ def pad_center(x: torch.Tensor, n_fft: int, pad_mode: str) -> torch.Tensor:
     return F.pad(flat, (pad, pad), mode=pad_mode).reshape(*lead, -1)
 
 
+def padded_rows(x: torch.Tensor, cfg: FrontendConfig):
+    """What every fused frontend starts from: ``[..., S]`` folded to float32
+    rows ``[B, S + n_fft]``, centre-padded.  Returns ``(rows, leading shape,
+    B, frame count 1 + S // hop)``."""
+    lead = x.shape[:-1]
+    S = x.shape[-1]
+    T = 1 + S // cfg.hop_length
+    B = int(np.prod(lead)) if lead else 1
+    xp = pad_center(x.reshape(B, S).to(torch.float32), cfg.n_fft, cfg.pad_mode)
+    return xp, lead, B, T
+
+
 def amplitude_to_db(mag: torch.Tensor, amin: float = 1e-5, multiplier: float = 20.0,
                     db_multiplier: float = 0.0) -> torch.Tensor:
     """torchaudio.functional.amplitude_to_DB with top_db=None."""
@@ -67,26 +84,43 @@ def _stft_mag_fft(x: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     return spec.abs().transpose(-1, -2).reshape(*lead, -1, cfg.num_bins)
 
 
-def stft_magnitude(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> torch.Tensor:
-    """Magnitude spectrogram ``[..., frames, bins]``.  The DIF path computes
-    dB directly, so its magnitude is ``10**(dB/mult)``: sub-amin bins come
-    back as exactly ``amin`` (identical after :func:`amplitude_to_db`)."""
-    cfg = cfg or FrontendConfig()
-    if cfg.resolved_implementation(x.device) == "dif":
+def _fused_frontend(cfg: FrontendConfig):
+    """The fused ``(x, cfg) -> dB [..., frames, bins]`` frontend that ``cfg``
+    resolves to, or None for ``"fft"``."""
+    impl = cfg.resolved_implementation()
+    if impl == "dif_pallas":
         from tpumix_torch.ops.stft_dif import stft_features_dif
 
-        db = stft_features_dif(x, cfg)
-        return torch.exp(db * (math.log(10.0) / cfg.db_multiplier))
+        return stft_features_dif
+    if impl == "ct_pallas":
+        from tpumix_torch.ops.stft_ct import stft_features_ct
+
+        return stft_features_ct
+    if impl == "pallas":
+        from tpumix_torch.ops.stft_basis import stft_features_basis
+
+        return stft_features_basis
+    return None
+
+
+def stft_magnitude(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> torch.Tensor:
+    """Magnitude spectrogram ``[..., frames, bins]``.  The fused frontends
+    compute dB directly, so their magnitude is ``10**(dB/mult)``: sub-amin
+    bins come back as exactly ``amin`` (identical after
+    :func:`amplitude_to_db`)."""
+    cfg = cfg or FrontendConfig()
+    fused = _fused_frontend(cfg)
+    if fused is not None:
+        return torch.exp(fused(x, cfg) * (math.log(10.0) / cfg.db_multiplier))
     return _stft_mag_fft(x, cfg)
 
 
 def spectrogram_features_tm(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> torch.Tensor:
     """Frontend in time-major layout: ``[..., S]`` -> ``[..., frames, bins]``."""
     cfg = cfg or FrontendConfig()
-    if cfg.resolved_implementation(x.device) == "dif":
-        from tpumix_torch.ops.stft_dif import stft_features_dif
-
-        return stft_features_dif(x, cfg)
+    fused = _fused_frontend(cfg)
+    if fused is not None:
+        return fused(x, cfg)
     mag = _stft_mag_fft(x, cfg)
     return amplitude_to_db(mag, amin=cfg.amin, multiplier=cfg.db_multiplier)
 

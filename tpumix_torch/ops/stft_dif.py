@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from tpumix_torch.config import FrontendConfig, dif_applicable
-from tpumix_torch.ops.stft import pad_center
+from tpumix_torch.ops.stft import padded_rows
+from tpumix_torch.ops.stft_basis import make_tm_hybrid
 
 _N2 = 128  # contiguous block size (n = 128*n1 + n2)
 _KERNEL_NFFT = 2048  # the CUDA kernel is specialised for 16 x 128
@@ -65,18 +66,11 @@ def _dif_tables_f64(n_fft: int):
 def _kernel_tables(device: str) -> torch.Tensor:
     """Window, twiddles and ``W_128`` in float64, in the kernel's flat order,
     resident on ``device``.  The kernel computes in float64 (see the note in
-    csrc/stft_dif.cu) and holds the ``W_16`` factors as literals."""
+    csrc/stft_dif.cu) and holds the ``W_16`` factors as literals.  The DIT
+    kernel (ops/stft_ct.py) reads the same buffer: its twiddle
+    ``W_2048^(p*k2)`` is this ``[16, 128]`` table."""
     flat = np.concatenate([a.reshape(-1) for a in _dif_tables_f64(_KERNEL_NFFT)[:5]])
     return torch.from_numpy(flat).to(device)
-
-
-def _frames(x: torch.Tensor, cfg: FrontendConfig):
-    lead = x.shape[:-1]
-    S = x.shape[-1]
-    T = 1 + S // cfg.hop_length
-    B = int(np.prod(lead)) if lead else 1
-    xp = pad_center(x.reshape(B, S).to(torch.float32), cfg.n_fft, cfg.pad_mode)
-    return xp, lead, B, T
 
 
 def stft_features_dif_plain(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> torch.Tensor:
@@ -95,7 +89,7 @@ def stft_features_dif_plain(x: torch.Tensor, cfg: Optional[FrontendConfig] = Non
     n1v = n_fft // _N2
     k1u = n1v // 2 + 1
     k2u = (n_fft // 2) // n1v + 1
-    xp, lead, B, T = _frames(x, cfg)
+    xp, lead, B, T = padded_rows(x, cfg)
     xp = xp.to(torch.float64)
     dev = xp.device
     w, twc, tws, c128, s128, c16, s16 = (torch.from_numpy(a).to(dev) for a in _dif_tables_f64(n_fft))
@@ -141,7 +135,7 @@ def stft_features_dif(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> 
         raise ValueError(f"the DIF kernel is built for n_fft={_KERNEL_NFFT}, got {cfg.n_fft}")
     from tpumix_torch.ops import _build
 
-    xp, lead, B, T = _frames(x, cfg)
+    xp, lead, B, T = padded_rows(x, cfg)
     xp = xp.contiguous()
     out = torch.empty((B, T, cfg.num_bins), dtype=torch.float32, device=x.device)
     tables = _kernel_tables(str(x.device))
@@ -158,3 +152,7 @@ def stft_features_dif(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> 
 
 
 stft_features_dif.launches = 0
+
+#: Kernel forward, ``"fft"``-path backward: the differentiable DIF frontend
+#: (tpumix/ops/stft_dif_pallas.py ``stft_features_dif_tm_hybrid``).
+stft_features_dif_tm_hybrid = make_tm_hybrid(stft_features_dif)

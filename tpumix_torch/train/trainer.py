@@ -1,0 +1,337 @@
+"""Training loop: epochs, validation, checkpointing, best-k scoring, early
+stopping, CSV metrics (tpumix/train/trainer.py).
+
+Parity targets:
+* plain loop semantics — per-epoch train pass + full val pass, per-epoch
+  checkpoint, returned loss histories (reference model_trainer.py:46-67);
+* ignite-style handlers — checkpoints scored by ``-train_mse`` with keep-all
+  or keep-best-k, EarlyStopping(patience) on the val evaluator, iteration
+  logging cadence (reference training_ignite.ipynb cells 12-15);
+* run naming ``{datetime}_training_{model}`` (cell 2).
+
+One waveform-in train step (tpumix_torch/train/state.py) on the card, fed by a
+background host->device prefetcher.  A checkpoint is the directory
+``epoch_NNNN`` holding one ``torch.save`` file of model, optimizer and update
+count; it is written under a temporary name and renamed into place, so a kill
+mid-save leaves only something ``resume`` recognises and sweeps.
+``SyntheticTrainer`` waits for the synthetic data engine (ROADMAP.md item 12).
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import datetime
+import json
+import os
+import re
+import shutil
+import time
+import warnings
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tpumix_torch.config import FrontendConfig, TrainConfig
+from tpumix_torch.data.prefetch import prefetch_to_device
+from tpumix_torch.infer.mixer import _mulaw_lut
+from tpumix_torch.train.state import (
+    cosine_decay_schedule,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from tpumix_torch.utils.device import disable_tf32, resolve_device
+
+_STATE_FILE = "state.pt"
+_TMP_MARK = ".tmp-"  # epoch_NNNN.tmp-<pid>: a checkpoint still being written
+
+
+def resolve_patience(patience: Optional[int], loss: str) -> int:
+    """Per-loss early-stopping default.  The lstsq objectives have a measured
+    mid-run val plateau deep enough that patience 10 stops there, so the
+    family defaults to 30; everything else keeps the reference's ignite
+    EarlyStopping(patience=10) parity.  An explicit value always wins."""
+    if patience is not None:
+        return patience
+    return 30 if loss in ("lstsq", "lstsq_tail", "lstsq_tail_cm") else 10
+
+
+@dataclasses.dataclass
+class TrainResult:
+    train_loss: List[float]
+    val_loss: List[float]
+    best_epoch: int
+    best_val_loss: float
+    stopped_early: bool
+
+
+def _to_pcm16(a) -> np.ndarray:
+    return np.clip(np.rint(np.asarray(a) * 32768.0), -32768, 32767)
+
+
+class Trainer:
+    """Orchestrates training of a gain-prediction model on waveform batches.
+
+    :param model: a scalar gain model (``build_model(cfg, for_training=True)``);
+        it is moved to ``device`` in ``channels_last``.
+    :param device: ``None`` = ``cuda`` (raises without a card); ``"cpu"`` runs
+        the frontends' plain versions.
+    """
+
+    def __init__(self, model: torch.nn.Module, frontend: FrontendConfig, config: TrainConfig,
+                 run_name: Optional[str] = None, device=None):
+        self.device = resolve_device(device)
+        # full f32 on the card: cuDNN would otherwise run every convolution,
+        # forward and backward, in TF32 (utils.device.disable_tf32)
+        disable_tf32()
+        self.model = model.to(self.device, memory_format=torch.channels_last)
+        self.frontend = frontend
+        self.config = config
+        self.patience = resolve_patience(config.early_stopping_patience, config.loss)
+        lr = config.learning_rate
+        if config.lr_schedule == "cosine":
+            if not config.lr_total_steps:
+                raise ValueError("lr_schedule='cosine' requires lr_total_steps")
+            lr = cosine_decay_schedule(config.learning_rate, config.lr_total_steps, alpha=0.01)
+        elif config.lr_schedule != "constant":
+            raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
+        self.state = create_train_state(self.model, lr, config.weight_decay)
+
+        # quality trap, armed by default in parity configs: retained fraction
+        # 0.10 (= torch BatchNorm2d momentum 0.90) makes running stats track
+        # essentially the LAST batch, so eval-mode outputs — and the val loss
+        # early stopping judges — are noisy unless the run is long
+        bn_m = getattr(model, "bn_momentum", None)
+        if bn_m is not None and bn_m <= 0.5:
+            warnings.warn(
+                f"model bn_momentum={bn_m} (torch-parity): BatchNorm running "
+                "stats will track the last batch almost exclusively, making "
+                "eval-mode validation noisy on short runs — pass "
+                "--bn-momentum 0.99 (ModelConfig.bn_momentum) unless strict "
+                "reference parity is the goal",
+                stacklevel=2,
+            )
+
+        # loss="gain" raises here with the guidance message: it needs
+        # generator labels, which no waveform-pair loader carries
+        self._train_step = make_train_step(
+            self.state, frontend, augment=config.augment,
+            augment_mix=config.augment_mix, loss=config.loss,
+        )
+        self._eval_step = make_eval_step(self.state, frontend, loss=config.loss)
+        # augmentation's random stream, on the device (tpumix: key(seed + 1))
+        self._generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+
+        stamp = datetime.datetime.now().strftime("%d-%m-%Y-%H:%M")
+        self.run_name = run_name or f"{stamp}_training_{type(model).__name__}"
+        self.ckpt_dir = os.path.abspath(os.path.join(config.checkpoint_dir, self.run_name))
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self._scores: Dict[int, float] = {}
+        self._metrics_path = os.path.join(self.ckpt_dir, "metrics.csv")
+        #: of the last train epoch: steps, wall seconds, seconds spent waiting
+        #: on the loader (host wait)
+        self.last_epoch_stats: Dict[str, float] = {"steps": 0, "wall_s": 0.0, "host_wait_s": 0.0}
+
+    # --- checkpointing -------------------------------------------------------
+
+    def _ckpt_path(self, epoch: int) -> str:
+        return os.path.join(self.ckpt_dir, f"epoch_{epoch:04d}")
+
+    def save_checkpoint(self, epoch: int, score: float) -> None:
+        """Save; score convention follows ignite's ``-train_mse`` (higher is
+        better).  With keep_checkpoints=k, only the top-k scored survive."""
+        final = self._ckpt_path(epoch)
+        tmp = f"{final}{_TMP_MARK}{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(
+            {"model": self.model.state_dict(), "optimizer": self.state.optimizer.state_dict(),
+             "step": self.state.step},
+            os.path.join(tmp, _STATE_FILE),
+        )
+        shutil.rmtree(final, ignore_errors=True)  # a re-run of this epoch overwrites
+        os.replace(tmp, final)
+        self._scores[epoch] = score
+        with open(os.path.join(self.ckpt_dir, "scores.json"), "w") as f:
+            json.dump(self._scores, f)
+        k = self.config.keep_checkpoints
+        if k is not None and len(self._scores) > k:
+            for ep in sorted(self._scores, key=self._scores.get)[: len(self._scores) - k]:
+                shutil.rmtree(self._ckpt_path(ep), ignore_errors=True)
+                del self._scores[ep]
+
+    def latest_epoch(self) -> Optional[int]:
+        """Newest epoch with a COMPLETE checkpoint in the run dir, or None.
+        Only exact ``epoch_<N>`` directory names count: a kill mid-save leaves
+        an ``epoch_<N>.tmp-<pid>`` staging dir behind, which is not restorable
+        and must not crash the scan."""
+        if not os.path.isdir(self.ckpt_dir):
+            return None
+        epochs = [
+            int(m.group(1))
+            for d in os.listdir(self.ckpt_dir)
+            if (m := re.fullmatch(r"epoch_(\d+)", d))
+            and os.path.isdir(os.path.join(self.ckpt_dir, d))
+        ]
+        return max(epochs) if epochs else None
+
+    def resume(self) -> int:
+        """Elastic recovery: restore the newest checkpoint of this run (if
+        any) and return the epoch to continue from (0 when starting fresh)."""
+        # sweep half-written checkpoint staging dirs (see latest_epoch): they
+        # hold no restorable state
+        if os.path.isdir(self.ckpt_dir):
+            for d in os.listdir(self.ckpt_dir):
+                if re.fullmatch(r"epoch_\d+" + re.escape(_TMP_MARK) + r".*", d):
+                    print(f"[resume] sweeping half-written checkpoint {d}")
+                    shutil.rmtree(os.path.join(self.ckpt_dir, d), ignore_errors=True)
+        latest = self.latest_epoch()
+        if latest is None:
+            return 0
+        self.restore_checkpoint(latest)
+        # reload the score ledger so the keep-best-k quota spans the whole
+        # run, not just post-resume epochs
+        scores_path = os.path.join(self.ckpt_dir, "scores.json")
+        if os.path.exists(scores_path):
+            with open(scores_path) as f:
+                self._scores = {int(k): float(v) for k, v in json.load(f).items()}
+            # drop ledger entries whose checkpoint dirs no longer exist
+            self._scores = {
+                ep: s for ep, s in self._scores.items() if os.path.isdir(self._ckpt_path(ep))
+            }
+        print(f"[resume] restored epoch {latest} from {self.ckpt_dir}")
+        return latest + 1
+
+    def restore_checkpoint(self, epoch: int) -> None:
+        saved = torch.load(os.path.join(self._ckpt_path(epoch), _STATE_FILE),
+                           map_location=self.device, weights_only=True)
+        self.model.load_state_dict(saved["model"])
+        self.state.optimizer.load_state_dict(saved["optimizer"])
+        self.state.step = int(saved["step"])
+
+    # --- loops ---------------------------------------------------------------
+
+    def _wire_transform(self):
+        """Host-side encode of a batch into ``config.transfer_dtype``."""
+        dtype = self.config.transfer_dtype
+        if dtype == "float32":
+            return None
+        if dtype == "int16":
+            return lambda batch: tuple(_to_pcm16(b).astype(np.int16) for b in batch)
+        if dtype == "mulaw8":
+            lut = _mulaw_lut()
+            return lambda batch: tuple(lut[_to_pcm16(b).astype(np.int32) + 32768] for b in batch)
+        raise ValueError(f"unknown transfer_dtype {dtype!r}")
+
+    def _run_train_epoch(self, loader) -> float:
+        losses = []  # device scalars; forced once at epoch end so steps
+        # pipeline (a per-step host sync would serialise transfers + compute)
+        tic = time.perf_counter()
+        waited = 0.0
+        it = prefetch_to_device(iter(loader), size=2, device=self.device,
+                                transform=self._wire_transform())
+        i = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                stems, mix = next(it)
+            except StopIteration:
+                break
+            waited += time.perf_counter() - t0
+            metrics = self._train_step(stems, mix, self._generator)
+            losses.append(metrics["loss"])
+            i += 1
+            if i % self.config.log_every_steps == 0:
+                print(f"  [{i}/{len(loader)}] loss: {float(metrics['loss']):.4f}")
+        mean = float(torch.stack(losses).mean()) if losses else 0.0  # waits for the device
+        self.last_epoch_stats = {"steps": i, "wall_s": time.perf_counter() - tic,
+                                 "host_wait_s": waited}
+        return mean
+
+    def _run_val_epoch(self, loader) -> float:
+        # device scalars accumulated and forced ONCE at epoch end
+        losses = []
+        for stems, mix in loader:
+            losses.append(self._eval_step(torch.as_tensor(stems).to(self.device),
+                                          torch.as_tensor(mix).to(self.device)))
+        return float(torch.stack(losses).mean()) if losses else 0.0
+
+    def fit(self, train_loader, val_loader, start_epoch: int = 0,
+            end_epoch: Optional[int] = None) -> TrainResult:
+        """Train epochs ``[start_epoch, end_epoch)``.
+
+        ``end_epoch`` is the run's TOTAL length (exclusive bound), not a
+        per-call increment: a resumed run (``start_epoch = resume()``)
+        continues to the same ``--epochs`` target instead of extending by
+        that many more.  ``start_epoch >= end_epoch`` trains nothing and
+        reports the run as already complete."""
+        end_epoch = end_epoch or self.config.num_epochs
+        train_hist, val_hist = [], []
+        best_val, best_epoch = float("inf"), -1
+        bad_epochs = 0
+        stopped = False
+
+        with open(self._metrics_path, "a", newline="") as f:
+            writer = csv.writer(f)
+            if f.tell() == 0:
+                writer.writerow(["epoch", "train_loss", "val_loss", "seconds"])
+
+            for epoch in range(start_epoch, end_epoch):
+                tic = time.time()
+                train_loss = self._run_train_epoch(train_loader)
+                val_loss = self._run_val_epoch(val_loader)
+                dt = time.time() - tic
+                train_hist.append(train_loss)
+                val_hist.append(val_loss)
+                stats = self.last_epoch_stats
+                print(
+                    f"Epoch {epoch}: train {train_loss:.4f}  val {val_loss:.4f}  ({dt:.1f}s; "
+                    f"{stats['steps']} train steps in {stats['wall_s']:.2f}s, "
+                    f"{stats['host_wait_s']:.2f}s of it waiting on the loader)"
+                )
+                writer.writerow([epoch, f"{train_loss:.6f}", f"{val_loss:.6f}", f"{dt:.2f}"])
+                f.flush()
+
+                # ignite parity scores by -train_mse; "val" keeps the best
+                # VALIDATION epochs instead (what an exported inference
+                # artifact should be picked from)
+                score = -val_loss if self.config.checkpoint_score == "val" else -train_loss
+                self.save_checkpoint(epoch, score=score)
+
+                if val_loss < best_val - 1e-12:
+                    best_val, best_epoch = val_loss, epoch
+                    bad_epochs = 0
+                else:
+                    bad_epochs += 1
+                    if bad_epochs >= self.patience:
+                        print(f"Early stopping at epoch {epoch} (patience exhausted)")
+                        stopped = True
+                        break
+
+        self.plot_loss_curves(train_hist, val_hist)
+        return TrainResult(train_hist, val_hist, best_epoch, best_val, stopped)
+
+    def plot_loss_curves(self, train_hist: List[float], val_hist: List[float]) -> Optional[str]:
+        """Loss-curve PNG in the run dir (parity: reference
+        training_ignite.ipynb cell 16 / training.ipynb cell 17)."""
+        if not train_hist:
+            return None
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:  # matplotlib optional
+            return None
+        fig = plt.figure(figsize=(7, 4))
+        plt.plot(train_hist, label="train")
+        plt.plot(val_hist, label="val")
+        plt.xlabel("epoch")
+        plt.ylabel("MSE loss")
+        plt.legend()
+        path = os.path.join(self.ckpt_dir, "loss_curves.png")
+        fig.savefig(path, bbox_inches="tight")
+        plt.close(fig)
+        return path
