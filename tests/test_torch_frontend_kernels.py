@@ -74,6 +74,20 @@ def test_plain_matches_jax_kernel(audio, name):
     _bounds(np.abs(got - ref), max_db)
 
 
+@pytest.mark.parametrize("hop", [8, 128])
+def test_factorized_plain_matches_jax_kernel(audio, hop):
+    """The factorization the CUDA kernel follows (256 = 16 x 16), in torch
+    ops, against the JAX naive-basis kernel and the port's dense version."""
+    cfg, jcfg = _cfgs(hop)
+    x = audio[:, :1500] if hop == 8 else audio
+    ref = np.asarray(stft_features_pallas_tm(jnp.asarray(x), jcfg))
+    got = stft_basis.stft_features_basis_factorized_plain(torch.from_numpy(x), cfg).numpy()
+    assert got.shape == ref.shape == (3, 1 + x.shape[-1] // hop, 129) and got.dtype == np.float32
+    _bounds(np.abs(got - ref), 0.2)
+    dense = stft_basis.stft_features_basis_plain(torch.from_numpy(x), cfg).numpy()
+    np.testing.assert_allclose(got, dense, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_plain_matches_numpy_oracle(audio, name):
     _, plain, _, hop, max_db = KERNELS[name]

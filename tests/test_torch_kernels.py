@@ -20,7 +20,20 @@ from tpumix_torch.config import FrontendConfig
 from tpumix_torch.ops import _build
 import dataclasses
 
-from tpumix_torch.ops.conv_block import conv_block_fused, conv_block_fused_plain, fold_batchnorm
+from tpumix_torch.models.blocks import ConvBlock2d
+from tpumix_torch.ops import stft_basis
+from tpumix_torch.ops.conv_block import (
+    K_CHUNK,
+    conv_block_fused,
+    conv_block_fused_packed,
+    conv_block_fused_plain,
+    conv_block_fused_tf32_emulated,
+    conv_block_fused_undrained,
+    conv_block_route,
+    fold_batchnorm,
+    pack_conv_weights,
+    tf32_split,
+)
 from tpumix_torch.ops.stft import spectrogram_features_tm
 from tpumix_torch.ops.stft_basis import (
     stft_features_basis,
@@ -185,6 +198,9 @@ def test_dif_kernel_rejects_what_it_cannot_take(cuda_device):
     ((1, 40, 22, 48), (7, 7, 48, 64)),
     ((1, 33, 21, 64), (9, 9, 64, 128)),
     ((3, 19, 9, 4), (3, 3, 4, 24)),
+    ((2, 12, 11, 8), (1, 1, 8, 32)),  # one weight chunk per kernel row
+    ((2, 30, 40, 8), (3, 3, 8, 64)),  # kernel rows of 24 values, padded to the chunk of 32
+    ((1, 150, 140, 16), (3, 5, 16, 128)),  # tiles that wrap over several output rows
 ])
 def test_conv_kernel_matches_plain(cuda_device, xs, ws):
     x, w, s, t = (v.to(cuda_device) for v in _block(xs, ws))
@@ -212,6 +228,58 @@ def test_conv_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         conv_block_fused(torch.zeros((1, 8, 8, 8), device=cuda_device).transpose(1, 2),
                          torch.zeros((3, 3, 8, 8), device=cuda_device), s, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(1200, 300), (4096, 1024), (256, 8), (8192, 2048),
+                                       (16384, 4096)])  # the last: the dense route
+@pytest.mark.parametrize("tone", [0.03, 0.3])
+def test_basis_kernel_takes_other_frame_lengths(cuda_device, n_fft, hop, tone):
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, implementation="pallas")
+    x = torch.from_numpy(_audio(seconds=0.1 if hop == 8 else 2.0, tone=tone)).to(cuda_device)
+    before = stft_features_basis.launches
+    got = stft_features_basis(x, cfg)
+    torch.cuda.synchronize()
+    assert stft_features_basis.launches == before + 1
+    assert got.shape == (3, 1 + x.shape[-1] // hop, n_fft // 2 + 1)
+    d = (got - stft_features_basis_plain(x, cfg)).abs().cpu().numpy()
+    assert d.max() < 0.2 and d.mean() < 1e-4 and np.quantile(d, 0.999) < 5e-3
+    assert bool((got[-1] == got[-1].flatten()[0]).all())
+    assert torch.equal(got, stft_features_basis(x, cfg))  # one writer per bin: deterministic
+    route = _build.load("stft_basis").stft_basis_route(n_fft)
+    assert route == (0 if n_fft == 16384 else 1)
+
+
+@pytest.mark.cuda
+def test_conv_route_is_chosen_by_shape(cuda_device):
+    for xs, ws in [((64, 511, 85, 16), (5, 5, 16, 32)), ((64, 507, 81, 32), (5, 5, 32, 48)),
+                   ((64, 503, 77, 48), (7, 7, 48, 64)), ((64, 497, 71, 64), (9, 9, 64, 128)),
+                   ((2, 40, 30, 16), (5, 5, 16, 32))]:
+        assert conv_block_route(xs, ws) == "wgmma"
+    assert conv_block_route((3, 19, 9, 4), (3, 3, 4, 24)) == "simt"  # Cin % 8
+    assert conv_block_route((1, 20, 20, 16), (3, 3, 16, 40)) == "simt"  # Cout not a wgmma width
+    assert conv_block_route((1, 8, 8, 6), (3, 3, 6, 8)) == "none"
+    # the measurement-only entry runs the wgmma route alone
+    x, w, s, t = (v.to(cuda_device) for v in _block((3, 19, 9, 4), (3, 3, 4, 24)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        conv_block_fused_undrained(x, pack_conv_weights(w, s, t))
+
+
+@pytest.mark.cuda
+def test_conv_kernel_drains_the_tensor_core_accumulators(cuda_device):
+    """K = 5184: the drained kernel is inside the tolerance; left to
+    accumulate by truncation over all of K it is several times further off."""
+    x, w, s, t = (v.to(cuda_device) for v in _block((2, 140, 71, 64), (9, 9, 64, 128)))
+    assert conv_block_route(tuple(x.shape), tuple(w.shape)) == "wgmma"
+    ref = conv_block_fused_plain(x, w, s, t)
+    packed = pack_conv_weights(w, s, t)
+    got = conv_block_fused_packed(x, packed)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=5e-5)
+    emulated = conv_block_fused_tf32_emulated(x, w, s, t)
+    np.testing.assert_allclose(got.cpu().numpy(), emulated.cpu().numpy(), rtol=1e-4, atol=5e-5)
+    drained = float((got - ref).abs().max())
+    undrained = float((conv_block_fused_undrained(x, packed) - ref).abs().max())
+    assert undrained > 3 * drained
 
 
 # --- on any host -------------------------------------------------------------
@@ -281,3 +349,172 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
         assert fn.endswith("_launch")
         assert argtypes[-1] is ctypes.c_void_p  # the stream
         assert argtypes[:2] == (ctypes.c_void_p, ctypes.c_void_p)  # first two tensors
+    # conv_block_launch: x, w, packed w, scale, shift, out, 7 ints, stream
+    assert _build.SIGNATURES["conv_block"][1] == (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (
+        ctypes.c_void_p,)
+    # stft_basis_launch: xp, out, table, cos basis, sin basis, then the geometry
+    assert _build.SIGNATURES["stft_basis"][1][:5] == (ctypes.c_void_p,) * 5
+    assert set(_build.EXTRA_ENTRIES) <= set(_build.SIGNATURES)
+    extra = {fn: argtypes for entries in _build.EXTRA_ENTRIES.values() for fn, argtypes in entries}
+    assert set(extra) == {"conv_block_route", "conv_block_undrained_launch", "stft_basis_route"}
+    assert extra["conv_block_route"] == (ctypes.c_int,) * 7  # N, H, W, Cin, kh, kw, Cout
+    assert extra["stft_basis_route"] == (ctypes.c_int,)
+    assert extra["conv_block_undrained_launch"] == _build.SIGNATURES["conv_block"][1]
+
+
+# --- K2: weight packing, the 3xTF32 scheme, the module's cache ----------------
+
+
+@pytest.mark.parametrize("ws", [(5, 5, 16, 32), (9, 9, 64, 128), (7, 7, 48, 64), (3, 3, 4, 24)])
+def test_weight_packing_is_k_major_tf32_hi_and_lo(ws):
+    _, w, s, t = _block((1, 12, 12, ws[2]), ws)
+    packed = pack_conv_weights(w, s, t)
+    kh, kw, cin, cout = ws
+    row_k = kw * cin
+    padded = -(-row_k // K_CHUNK) * K_CHUNK
+    assert packed.hilo.shape == (2, cout, kh * padded) and packed.hilo.dtype == torch.float32
+    assert packed.hilo.is_contiguous() and packed.w.is_contiguous()
+    hilo = packed.hilo.reshape(2, cout, kh, padded)
+    if padded > row_k:
+        assert float(hilo[..., row_k:].abs().max()) == 0.0  # the padding multiplies by zero
+    hi, lo = hilo[0, :, :, :row_k], hilo[1, :, :, :row_k]
+    # [Cout, K] with k = (i, j, c): element (co, i, j*cin + c) is w[i, j, c, co]
+    want = w.permute(3, 0, 1, 2).reshape(cout, kh, row_k)
+    assert torch.equal(hi + lo, want)  # exact in float32
+    assert bool((lo.abs() <= 2.0 ** -11 * want.abs()).all())
+    assert int((hi.contiguous().view(torch.int32) & 0x1FFF).abs().max()) == 0  # TF32: 13 zero bits
+    assert float(hi[5, 1, 2 * cin + 3]) == float(tf32_split(w[1, 2, 3, 5])[0])
+    assert torch.equal(packed.scale, s) and torch.equal(packed.shift, t)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    one = torch.tensor([1.0]).view(torch.int32)
+    v = torch.cat([one + 0x0FFF, one + 0x1000, one + 0x1001]).view(torch.float32)
+    v = torch.cat([v, -v[1:2]])  # the tie, negative: away from zero too
+    hi, lo = tf32_split(v)
+    want = torch.cat([one, one + 0x2000, one + 0x2000]).view(torch.float32)
+    assert torch.equal(hi[:3], want) and float(hi[3]) == -float(want[1])
+    assert torch.equal(hi + lo, v)
+    inf = torch.tensor([float("inf"), -float("inf")])
+    assert torch.equal(tf32_split(inf)[0], inf)
+
+
+EMULATION_SHAPES = [
+    ((2, 40, 30, 16), (5, 5, 16, 32)),
+    ((1, 45, 25, 32), (5, 5, 32, 48)),
+    ((1, 40, 22, 48), (7, 7, 48, 64)),
+    ((1, 33, 21, 64), (9, 9, 64, 128)),
+    ((3, 19, 9, 4), (3, 3, 4, 24)),
+    ((1, 12, 12, 64), (9, 9, 64, 128)),  # K = 5184, block 5's
+]
+
+
+@pytest.mark.parametrize("xs,ws", EMULATION_SHAPES)
+def test_three_tf32_passes_hold_the_kernel_tolerance(xs, ws):
+    x, w, s, t = _block(xs, ws)
+    ref = conv_block_fused_plain(x, w, s, t)
+    got = conv_block_fused_tf32_emulated(x, w, s, t)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=5e-5)
+
+
+def test_one_tf32_pass_misses_the_kernel_tolerance():
+    x, w, s, t = _block((1, 12, 12, 64), (9, 9, 64, 128))
+    ref = conv_block_fused_plain(x, w, s, t)
+    one = conv_block_fused_tf32_emulated(x, w, s, t, passes=1)
+    off = (one - ref).abs() > 5e-5 + 1e-4 * ref.abs()
+    assert float(off.float().mean()) > 0.1  # not a stray element: plain TF32 is ~1e-3 off
+    with pytest.raises(ValueError):
+        conv_block_fused_tf32_emulated(x, w, s, t, passes=2)
+
+
+def _fused_block(seed=0):
+    torch.manual_seed(seed)
+    blk = ConvBlock2d(8, 16, 3, conv_impl="pallas").eval()
+    with torch.no_grad():
+        blk.bn.running_mean.normal_(0, 0.1)
+        blk.bn.running_var.uniform_(0.5, 2.0)
+    return blk
+
+
+def test_conv_block_keeps_its_packed_operands_until_something_changes():
+    blk = _fused_block()
+    x = torch.randn(2, 8, 10, 9).contiguous(memory_format=torch.channels_last)
+    y0 = blk(x)
+    packed = blk._packed
+    assert packed is not None and torch.equal(blk(x), y0) and blk._packed is packed
+    unfused = torch.relu(blk.bn(blk.conv(x)))
+    torch.testing.assert_close(y0, unfused, rtol=1e-4, atol=5e-5)
+
+    other = _fused_block(seed=1)
+    blk.load_state_dict(other.state_dict())  # copies in place: the versions move
+    y1 = blk(x)
+    assert blk._packed is not packed and not torch.equal(y1, y0)
+    torch.testing.assert_close(y1, other(x), rtol=0, atol=0)
+
+    packed = blk._packed
+    with torch.no_grad():
+        blk.conv.weight.mul_(2.0)  # what an optimizer step does
+    y2 = blk(x)
+    assert blk._packed is not packed
+    torch.testing.assert_close(y2, torch.relu(blk.bn(blk.conv(x))), rtol=1e-4, atol=5e-5)
+
+    packed = blk._packed
+    with torch.no_grad():
+        blk.bn.running_var.add_(0.5)  # a buffer, not a parameter
+    assert not torch.equal(blk(x), y2) and blk._packed is not packed
+    packed = blk._packed
+    blk.conv.weight.data = blk.conv.weight.data.clone()  # new storage (as a move to a device is)
+    assert blk._fused_operands() is not packed
+
+
+# --- K3: the factorization against the dense product ---------------------------
+
+
+@pytest.mark.parametrize("n_fft,hop,a,r", [(256, 8, 2, 1), (1200, 300, 1, 75), (2048, 512, 2, 8),
+                                           (4096, 1024, 3, 1)])
+def test_factorized_plain_matches_dense_plain(n_fft, hop, a, r):
+    assert stft_basis.factorization(n_fft) == (a, r)
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, sample_rate=8000)
+    x = torch.from_numpy(_audio(rows=3, seconds=0.03 if hop == 8 else 0.25, tone=0.3))
+    dense, _, T = stft_basis._dense_db(x, cfg, torch.float64)
+    fact, _, _ = stft_basis._factorized_db(x, cfg)
+    assert fact.dtype == torch.float64 and fact.shape == dense.shape == (3, T, n_fft // 2 + 1)
+    # dB, before the rounding to float32.  Two float64 sums in different orders:
+    # they agree to ~1e-14 dB in a typical bin, and to 1e-8 dB in the few bins
+    # 90 dB under their frame's energy (reflect-padded edge frames), where the
+    # 1e-16 rounding of the frame-sized terms is 1e-9 of what is left
+    d = (fact - dense).abs()
+    assert float(d.median()) < 1e-12 and float(d.max()) < 1e-7
+    got = stft_basis.stft_features_basis_factorized_plain(x, cfg)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, stft_features_basis_plain(x, cfg), rtol=0, atol=1e-5)
+    assert bool((got[-1] == got[-1].flatten()[0]).all())  # the silent row clamps to amin
+
+
+@pytest.mark.parametrize("n_fft", [16, 48, 256, 1200, 2048, 4096, 8192])
+def test_factorized_output_map_writes_every_bin_once(n_fft):
+    a, r = stft_basis.factorization(n_fft)
+    bins, keep = stft_basis._output_map(n_fft)
+    assert bins.shape == keep.shape == (n_fft // r, r)
+    assert sorted(bins[keep].tolist()) == list(range(n_fft // 2 + 1))
+    top = np.arange(n_fft // r) // 16 ** (a - 1)
+    assert not keep[top > 8].any()  # the real input's other half is never computed
+    # subsequence idx holds the bins congruent to its reversed digits mod 16^a
+    assert bins[1, 0] == 16 ** (a - 1) and (a < 2 or bins[16, 0] == 16 ** (a - 2))
+
+
+def test_basis_kernel_tables_are_the_float64_tables_in_flat_order():
+    n = 1200
+    flat = stft_basis._kernel_tables(n, "cpu")
+    assert flat.dtype == torch.float64 and flat.shape == (3 * n,)
+    e = torch.arange(n, dtype=torch.float64)
+    torch.testing.assert_close(flat[:n], 0.5 - 0.5 * torch.cos(2 * np.pi * e / n), rtol=0, atol=1e-15)
+    tw = flat[n:].reshape(n, 2)  # interleaved (cos, sin): one 16-byte load per twiddle
+    torch.testing.assert_close(tw[:, 0], torch.cos(2 * np.pi * e / n), rtol=0, atol=1e-15)
+    torch.testing.assert_close(tw[:, 1], torch.sin(2 * np.pi * e / n), rtol=0, atol=1e-15)
+    assert float(tw[0, 0]) == 1.0 and float(tw[0, 1]) == 0.0
+    assert abs(float(tw[n // 4, 0])) < 1e-15 and float(tw[n // 4, 1]) == 1.0
+    # the tail's W_r^j is every (n / r)-th entry: r = 75 -> W_75^1 = tw[16]
+    np.testing.assert_allclose(tw[16].numpy(), [np.cos(2 * np.pi / 75), np.sin(2 * np.pi / 75)],
+                               atol=1e-15)

@@ -15,7 +15,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpumix_torch.ops.conv_block import conv_block_fused, fold_batchnorm
+from tpumix_torch.ops.conv_block import (
+    PackedConvBlock,
+    conv_block_fused_packed,
+    fold_batchnorm,
+    pack_conv_weights,
+)
 
 BN_EPS = 1e-3
 
@@ -58,7 +63,8 @@ class ConvBlock2d(nn.Module):
     ``conv_impl="pallas"`` runs eligible blocks (eval mode, stride 1,
     dilation 1, float32 — the conditions of tpumix/models/blocks.py:166-173)
     through the fused conv+BN+ReLU kernel with BN folded; every other case
-    is ``F.conv2d`` + BN + ReLU."""
+    is ``F.conv2d`` + BN + ReLU.  The folded and packed operands of the kernel
+    are made once and kept until a parameter or a BN buffer changes."""
 
     def __init__(self, in_features: int, features: int, kernel_size, strides: int = 1,
                  dilation: int = 1, dropout_p: float = -1.0, bn_momentum: float = 0.10,
@@ -76,6 +82,25 @@ class ConvBlock2d(nn.Module):
         self.bn = BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - bn_momentum)
         self.dropout = nn.Dropout(dropout_p) if dropout_p > 0 else None
         self.conv_impl = conv_impl
+        self._packed: Optional[PackedConvBlock] = None
+        self._packed_key: Optional[tuple] = None
+
+    def _fused_operands(self) -> PackedConvBlock:
+        """BN folded and weights packed for the kernel, cached on the version
+        counters of everything they are made from: an in-place update (an
+        optimizer step, ``load_state_dict``) or a move to another device makes
+        them anew."""
+        sources = (self.conv.weight, self.conv.bias, self.bn.weight, self.bn.bias,
+                   self.bn.running_mean, self.bn.running_var)
+        key = tuple((t._version, t.data_ptr(), t.device) for t in sources)
+        if key != self._packed_key:
+            with torch.no_grad():
+                s, t = fold_batchnorm(self.conv.bias, self.bn.weight, self.bn.bias,
+                                      self.bn.running_mean, self.bn.running_var, self.bn.eps)
+                w = self.conv.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
+                self._packed = pack_conv_weights(w, s, t)
+            self._packed_key = key
+        return self._packed
 
     def _fused_eligible(self, x: torch.Tensor) -> bool:
         return (
@@ -89,11 +114,8 @@ class ConvBlock2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fused_eligible(x):
-            s, t = fold_batchnorm(self.conv.bias, self.bn.weight, self.bn.bias,
-                                  self.bn.running_mean, self.bn.running_var, self.bn.eps)
             nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            w = self.conv.weight.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
-            y = conv_block_fused(nhwc, w, s.contiguous(), t.contiguous())
+            y = conv_block_fused_packed(nhwc, self._fused_operands())
             return y.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         x = torch.relu(self.bn(self.conv(x)))
         if self.dropout is not None:

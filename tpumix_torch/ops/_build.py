@@ -35,12 +35,23 @@ _I = ctypes.c_int
 SIGNATURES = {
     "stft_dif": ("stft_dif_launch",
                  (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_double, _P)),
-    "conv_block": ("conv_block_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "conv_block": ("conv_block_launch",
+                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "stft_basis": ("stft_basis_launch",
-                   (_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, ctypes.c_float,
+                   (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, ctypes.c_float,
                     ctypes.c_double, _P)),
     "stft_ct": ("stft_ct_launch",
                 (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_double, _P)),
+}
+# further C entries of a library: shape queries it answers, and launches that
+# exist for measurement only
+EXTRA_ENTRIES = {
+    "conv_block": (
+        ("conv_block_route", (_I, _I, _I, _I, _I, _I, _I)),
+        ("conv_block_undrained_launch",
+         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    ),
+    "stft_basis": (("stft_basis_route", (_I,)),),
 }
 
 
@@ -100,10 +111,10 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, load, and declare the entry point's signature."""
+    """Build if needed, load, and declare the entry points' signatures."""
     lib = ctypes.CDLL(build((name,))[name])
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in (SIGNATURES[name], *EXTRA_ENTRIES.get(name, ())):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return lib
