@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,17 +35,19 @@ def log(msg: str) -> None:
 
 
 def peak_rates(name: str):
-    """(FP32 FLOP/s, bytes/s, source, dense TF32 tensor FLOP/s) — NVIDIA
-    data-sheet peaks of the part."""
+    """(FP32 FLOP/s, bytes/s, source, dense TF32 tensor FLOP/s, FP64 FLOP/s
+    outside the tensor cores) — NVIDIA data-sheet peaks of the part."""
     if "PCIe" in name:
-        return 51.2e12, 2.0e12, "H100 PCIe data sheet", 378e12
+        return 51.2e12, 2.0e12, "H100 PCIe data sheet", 378e12, 25.6e12
     if "NVL" in name:
-        return 60.0e12, 3.9e12, "H100 NVL data sheet", 417.5e12
-    return 67.0e12, 3.35e12, "H100 SXM data sheet", 495e12
+        return 60.0e12, 3.9e12, "H100 NVL data sheet", 417.5e12, 30.0e12
+    return 67.0e12, 3.35e12, "H100 SXM data sheet", 495e12, 34.0e12
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup``."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup``,
+    each over ``inner`` calls back to back (per call): a call shorter than
+    the host's work to issue it needs several, or the events time the host."""
     import torch
 
     for _ in range(warmup):
@@ -54,10 +57,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -156,6 +160,35 @@ def phase_device():
     return name, smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """``dif_kernel<4,128,1,3>`` for a mangled kernel name with its template
+    arguments."""
+    m = re.search(r"([A-Za-z_]*kernel)((?:I(?:L[ib]\d+E)+E)?)", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
+
+
+def ptxas_report(log_path: str) -> list:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    kernel function in an ``nvcc -Xptxas -v`` log."""
+    rows, fn, spills = [], None, (0, 0)
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                rows.append((_kernel_name(fn), int(m.group(1)), *spills))
+                fn, spills = None, (0, 0)
+    return rows
+
+
 def phase_build():
     from tpumix_torch.ops import _build
 
@@ -163,10 +196,8 @@ def phase_build():
     paths = _build.build()
     log(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
     for name, path in sorted(paths.items()):
-        with open(path[:-3] + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line or "arning" in line:
-                    log(f"[build] {name}: {line.strip()}")
+        for fn, regs, st, ld in ptxas_report(path[:-3] + ".log"):
+            log(f"[build] {name}: {fn}: {regs} registers, spill stores {st} B, spill loads {ld} B")
 
 
 def _k1_audio(tone: float, noise: float) -> np.ndarray:
@@ -219,8 +250,31 @@ def _frontend_bound(B, S, T, rates):
     return (*bound_ms(flops, nbytes, rates), flops, nbytes)
 
 
+def _edge_audio(S: int, tone: float, noise: float) -> np.ndarray:
+    """``[8, S]``: a tone per row over white noise; row 7 silent."""
+    rng = np.random.default_rng(S)
+    t = np.arange(S) / SR
+    audio = (tone * np.sin(2 * np.pi * rng.uniform(40, 8000, size=(8, 1)) * t)
+             + noise * rng.standard_normal((8, S)))
+    audio[-1] = 0.0
+    return audio.astype(np.float32)
+
+
+# lengths at which the reflect padding reaches every frame (1025: the least
+# that reflect padding of 1024 takes) or most of them
+EDGE_LENGTHS = (1025, 1536, 2047, 4133)
+# the dB value of a silent bin from every frontend kernel: float32(scale * ln(amin^2))
+SILENT_DB = -(100.0 - 2.0 ** -17)
+# float64 instructions per frame of csrc/stft_dif.cu's design (an FMA is one),
+# counted from the source: stage A 128 x (16 window + 70 real 16-point FFT + 30
+# twiddle), C1 72 x 164 (16-point complex FFT), C2 144 x 88 (7 twiddles by
+# W_128, 8-point FFT), epilogue 1025 x 3 (|X|^2, clamp)
+DIF_FP64_PER_FRAME = 128 * (16 + 70 + 30) + 72 * 164 + 144 * 88 + 1025 * 3
+
+
 def phase_frontend_kernel(tag, rates, kernel, plain, record, max_db, f32_plain=None,
-                          auto_hop=None, extra_timing=None):
+                          auto_hop=None, extra_timing=None, edge_hops=(), max_held=None,
+                          fp64_per_frame=None):
     """One frontend kernel against its plain version, which computes the same
     function in float64: the difference is the kernel's own error.  For a
     float32 DFT its max sits in the deepest noise minima among the segment's
@@ -232,7 +286,12 @@ def phase_frontend_kernel(tag, rates, kernel, plain, record, max_db, f32_plain=N
 
     ``auto_hop``: ``(hop, B, S)`` of a small input on which
     ``implementation="auto"`` must pick this kernel by itself.
-    ``extra_timing``: ``(label, cfg, shape)`` of one more kernel timing."""
+    ``extra_timing``: ``(label, cfg, shape)`` of one more kernel timing.
+    ``edge_hops``: hops at which the kernel is also held to the plain
+    version at ``EDGE_LENGTHS``.  ``max_held``: a tighter bound on the
+    largest error of all these checks.  ``fp64_per_frame``: the kernel
+    design's float64 instructions per frame, printed as a time beside the
+    bound."""
     import torch
 
     from tpumix_torch.config import FrontendConfig
@@ -270,6 +329,32 @@ def phase_frontend_kernel(tag, rates, kernel, plain, record, max_db, f32_plain=N
     if failed:
         raise AssertionError(f"{tag} disagrees with its plain version: {failed}")
     log(f"[{tag}] silent stem: every bin {silent_value!r} dB")
+    if silent_value != SILENT_DB:
+        raise AssertionError(f"{tag}: a silent bin is {silent_value!r} dB, not {SILENT_DB!r}")
+
+    for hop in edge_hops:
+        ecfg = FrontendConfig(hop_length=hop)
+        worst = (0.0, 0.0, 0.0)
+        for n in EDGE_LENGTHS:
+            for label, tone, noise in K1_LEVELS:
+                xe = torch.from_numpy(_edge_audio(n, tone, noise)).cuda()
+                got = kernel(xe, ecfg)
+                torch.cuda.synchronize()
+                if got.shape != (8, 1 + n // hop, 1025) or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{tag} at S={n}, hop {hop}: bad output {tuple(got.shape)}")
+                mx, mean, p999, _ = _db_errors(got, plain(xe, ecfg))
+                if not (mx < max_db and mean < 1e-4 and p999 < 5e-3):
+                    raise AssertionError(f"{tag} disagrees with its plain version at S={n}, hop "
+                                         f"{hop}, {label}: max {mx:.3e} mean {mean:.3e}")
+                if not bool((got[-1] == SILENT_DB).all()):
+                    raise AssertionError(f"{tag} at S={n}, hop {hop}: silent row is not {SILENT_DB}")
+                worst = tuple(max(a, b) for a, b in zip(worst, (mx, mean, p999)))
+        held = max(held, worst[0])
+        log(f"[{tag}] hop {hop} at S = {EDGE_LENGTHS}, three levels, [8, S] with a silent row: "
+            f"|kernel - plain| dB worst max {worst[0]:.4e} mean {worst[1]:.3e} p99.9 "
+            f"{worst[2]:.3e}; silent row {SILENT_DB!r} dB")
+    if max_held is not None and held > max_held:
+        raise AssertionError(f"{tag}: largest error {held:.3e} dB exceeds {max_held:.0e}")
 
     if auto_hop is not None:
         hop, b, s = auto_hop
@@ -288,23 +373,110 @@ def phase_frontend_kernel(tag, rates, kernel, plain, record, max_db, f32_plain=N
 
     x = torch.from_numpy(_k1_audio(0.1, 0.1)).cuda()
     b_ms, b_by, flops, nbytes = _frontend_bound(B, S, T, rates)
-    ms = time_ms(lambda: kernel(x, cfg))
+    ms = time_ms(lambda: kernel(x, cfg), inner=10)
     plain_ms = time_ms(lambda: plain(x, cfg), reps=5, warmup=1)
-    lib_ms = time_ms(lambda: _library_features(x, cfg))
+    lib_ms = time_ms(lambda: _library_features(x, cfg), inner=10)
     log(f"[{tag}] [64,4,88200] -> [64,4,173,1025]: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
         f"torch.stft {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB)  {nbytes / ms / 1e6:.0f} GB/s, {ms / b_ms:.1f}x the bound")
+    if fp64_per_frame is not None:
+        f64_ms = B * T * fp64_per_frame / (rates[4] / 2) * 1e3
+        log(f"[{tag}] FP64 figure of the kernel's design: {fp64_per_frame} float64 instructions "
+            f"per frame, {B * T * fp64_per_frame / 1e9:.2f} G for the call, {f64_ms:.4f} ms at "
+            f"{rates[4] / 2e12:.1f} T instructions/s ({rates[4] / 1e12:.1f} TFLOP/s FP64, an FMA "
+            f"counted twice); {ms / f64_ms:.1f}x that figure")
     if extra_timing is not None:
         label, ecfg, shape = extra_timing
         xe = torch.from_numpy(_k1_audio(0.1, 0.1)).cuda().repeat(1, 1, 3)[..., : shape[-1]]
         xe = xe.contiguous()
-        e_ms = time_ms(lambda: kernel(xe, ecfg))
+        e_ms = time_ms(lambda: kernel(xe, ecfg), inner=10)
         te = 1 + shape[-1] // ecfg.hop_length
         eb_ms, eb_by, _, eb = _frontend_bound(shape[0] * shape[1], shape[-1], te, rates)
         log(f"[{tag}] {label} {list(xe.shape)} -> [..., {te}, 1025]: kernel {e_ms:.4f} ms  "
             f"bound {eb_ms:.4f} ms ({eb_by}, {eb / 1e6:.1f} MB)  {e_ms / eb_ms:.1f}x the bound")
     return {**record, "route": "cuda", "max_abs_err": held, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def entry_times(reps: int = 10) -> dict:
+    """Device ms per call (CUDA events over 10 calls, median of ``reps``) of
+    the DIF and DIT entries of the ``tpumix_torch`` on ``sys.path`` at the
+    serving and training shapes, and of ``padded_rows`` (the reflect-pad pass
+    that K3 makes before its kernel, as K1 and K4 did before they read the
+    unpadded rows); with the registers and spills (ptxas) of each library
+    those calls built."""
+    import torch
+
+    from tpumix_torch.config import FrontendConfig
+    from tpumix_torch.ops import _build
+    from tpumix_torch.ops.stft import padded_rows
+    from tpumix_torch.ops.stft_ct import stft_features_ct
+    from tpumix_torch.ops.stft_dif import stft_features_dif
+
+    x = torch.from_numpy(_k1_audio(0.1, 0.1)).cuda()
+    x_long = x.repeat(1, 1, 3)[..., :220500].contiguous()
+    c64, c512, c1024 = (FrontendConfig(hop_length=h) for h in (64, 512, 1024))
+    res = {
+        "K1 entry, hop 512": time_ms(lambda: stft_features_dif(x, c512), reps, inner=10),
+        "K1 entry, hop 1024 [64,4,220500]":
+            time_ms(lambda: stft_features_dif(x_long, c1024), reps, inner=10),
+        "K4 entry, hop 512": time_ms(lambda: stft_features_ct(x, c512), reps, inner=10),
+        "K4 entry, hop 64": time_ms(lambda: stft_features_ct(x, c64), reps, inner=10),
+        "padded_rows, hop 512": time_ms(lambda: padded_rows(x, c512), reps, inner=10),
+    }
+    logs = {n: _build.library_path(n)[:-3] + ".log" for n in _build.SIGNATURES}
+    res["ptxas"] = {n: ptxas_report(p) for n, p in logs.items() if os.path.exists(p)}
+    return res
+
+
+def dif_stage_times(smi: str, reps: int = 10) -> None:
+    """What each stage of the DIF kernel costs at ``[64,4,88200]``, hop 512:
+    the differences of launches stopped after stage A and after C1
+    (``stft_dif_stages_launch``) and the whole launch."""
+    import torch
+
+    from tpumix_torch.config import FrontendConfig
+    from tpumix_torch.ops.stft_dif import launch_kernel
+
+    x = torch.from_numpy(_k1_audio(0.1, 0.1)).cuda()
+    cfg = FrontendConfig(hop_length=512)
+    a, c1, whole = (time_ms(lambda: launch_kernel(x, cfg, "stft_dif", n), reps, inner=10)
+                    for n in (1, 2, 3))
+    log(f"[k1] kernel hop 512 stopped after stage A {a:.4f} ms, after C1 {c1:.4f} ms, whole "
+        f"{whole:.4f} ms; by stage: stage A + twiddle {a:.4f} ms, C1 {c1 - a:.4f} ms, C2 + "
+        f"epilogue {whole - c1:.4f} ms ({smi})")
+
+
+def phase_compare(parent: str, smi: str) -> None:
+    """``entry_times`` of another checkout's package (``parent``, e.g. a
+    ``git archive`` of the parent commit) and of this one, in turns on this
+    card (parent, change, change, parent), each in a process of its own."""
+    runs, failed = [], []
+    for label, root in (("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent)):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--entry-times", root],
+                             capture_output=True, text=True, timeout=900, cwd=root)
+        if res.returncode != 0:  # go on: the other side's numbers still come out
+            log(f"[ab] {label} ({root}) failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+            failed.append(label)
+            continue
+        runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
+    for i, (label, res) in enumerate(runs):
+        rows_by_lib = res.pop("ptxas")
+        if i == 0 and label == "parent":  # this checkout's: [build]
+            for lib, rows in rows_by_lib.items():
+                for fn, regs, st, ld in rows:
+                    log(f"[ab] parent {lib}: {fn}: {regs} registers, spill stores {st} B, "
+                        f"spill loads {ld} B")
+    keys = list(dict.fromkeys(k for _, res in runs for k in res))
+    log(f"[ab] frontend device ms per call at [64,4,88200] unless stated (10 calls per timing, "
+        f"median of 10), in turns parent, change, change, parent ({smi}):")
+    for k in keys:
+        cells = {lab: [f"{r[k]:.4f}" for l2, r in runs if l2 == lab and k in r]
+                 for lab in ("parent", "change")}
+        log(f"[ab]   {k}: parent {' '.join(cells['parent']) or '-'}  change "
+            f"{' '.join(cells['change']) or '-'}")
+    if failed:
+        raise AssertionError(f"entry times failed for {failed}")
 
 
 def phase_hybrids():
@@ -497,7 +669,7 @@ def phase_k3_sizes(rates, smi):
         flops = B * T * (2.5 * n_fft * np.log2(n_fft) + n_fft + 3 * bins)
         nbytes = 4 * (B * S + B * T * bins)
         b_ms, b_by = bound_ms(flops, nbytes, rates)
-        ms = time_ms(lambda: stft_features_basis(x, cfg))
+        ms = time_ms(lambda: stft_features_basis(x, cfg), inner=10)
         plain_ms = time_ms(lambda: stft_features_basis_plain(x, cfg), reps=3, warmup=1)
         log(f"[k3] n_fft {n_fft} hop {hop} [64,4,88200] -> [64,4,{T},{bins}]: kernel {ms:.4f} ms  "
             f"plain (dense f64) {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}; "
@@ -942,6 +1114,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases to run (default: all; the "
                          "kernel record and the ok line are printed only by a full run)")
+    ap.add_argument("--compare-with", metavar="DIR",
+                    help="also time the frontend entries of the tpumix_torch in DIR (e.g. a git "
+                         "archive of another commit) against this checkout's, in turns")
+    ap.add_argument("--entry-times", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -949,7 +1125,16 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {unknown}; have {PHASES}")
 
     t_start = time.perf_counter()
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.entry_times or ROOT))
+    if args.entry_times:  # one side of phase_compare: a JSON line, nothing else
+        import torch
+
+        if not torch.cuda.is_available():
+            return 2
+        import tpumix_torch  # noqa: F401
+
+        print(json.dumps(entry_times()))
+        return 0
     name, smi = phase_device()
     import torch
 
@@ -964,6 +1149,8 @@ def main(argv=None) -> int:
     rates = peak_rates(name)
     log(f"[device] bounds from {rates[2]}: {rates[0] / 1e12:.1f} TFLOP/s FP32, "
         f"{rates[3] / 1e12:.0f} TFLOP/s TF32 (tensor cores, dense), {rates[1] / 1e12:.2f} TB/s")
+    if args.compare_with:
+        phase_compare(os.path.abspath(args.compare_with), smi)
     phase_build()
 
     def f32(plain):
@@ -976,7 +1163,9 @@ def main(argv=None) -> int:
             {"name": "stft_features_dif", "source": "tpumix_torch/csrc/stft_dif.cu",
              "replaces": "tpumix/ops/stft_dif_pallas.py:318"}, max_db=0.1,
             extra_timing=("hop 1024 (the resnet18 frontend)", FrontendConfig(hop_length=1024),
-                          (64, 4, 220500)))
+                          (64, 4, 220500)), edge_hops=(128, 512, 1024), max_held=1e-5,
+            fp64_per_frame=DIF_FP64_PER_FRAME)
+        dif_stage_times(smi)
     if "k2" in phases:
         kernels["conv_block_fused"] = phase_k2(rates, smi)
     if "k3" in phases:
@@ -987,11 +1176,15 @@ def main(argv=None) -> int:
             f32_plain=f32(stft_features_basis_plain), auto_hop=(8, 2, 4096))
         phase_k3_sizes(rates, smi)
     if "k4" in phases:
+        # the DIT entry launches the DIF kernel; held to the DIT float64 plain version
         kernels["stft_features_ct"] = phase_frontend_kernel(
             "k4", rates, stft_features_ct, stft_features_ct_plain,
-            {"name": "stft_features_ct", "source": "tpumix_torch/csrc/stft_ct.cu",
+            {"name": "stft_features_ct", "source": "tpumix_torch/csrc/stft_dif.cu",
              "replaces": "tpumix/ops/stft_ct_pallas.py:186"}, max_db=0.1,
-            f32_plain=f32(stft_features_ct_plain), auto_hop=(64, 3, 22050))
+            f32_plain=f32(stft_features_ct_plain), auto_hop=(64, 3, 22050),
+            extra_timing=("hop 64 (what 'auto' gives this entry)", FrontendConfig(hop_length=64),
+                          (64, 4, 88200)), edge_hops=(16, 64), max_held=1e-5,
+            fp64_per_frame=DIF_FP64_PER_FRAME)
     if "hyb" in phases:
         phase_hybrids()
     launches = {}  # per kernel, summed over the serving and the training path

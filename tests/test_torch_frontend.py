@@ -1,7 +1,8 @@
 """The port's DIF frontend (tpumix_torch/ops/stft_dif.py) against the JAX
 package: the plain torch version — the CPU path of the K1 wrapper, which
-repeats the kernel's factorization (stage-A [16, 9] DFT, twiddle, stage-C
-[128, 65] DFT, natural bin order) — vs ``stft_features_dif_pallas_tm`` in
+repeats the kernel's factorization (frames through the reflect index map,
+stage-A [16, 9] DFT, twiddle, stage-C [128, 128] DFT on the 9 series, the
+mirror for the other bins) — vs ``stft_features_dif_pallas_tm`` in
 interpret mode and vs the numpy FFT oracle.  Bounds are the JAX kernel's own
 (tests/test_stft_dif_pallas.py:44-46): mean < 1e-4 dB, p99.9 < 5e-3, max
 < 0.1.  The kernel itself is held to the plain version on the card in
@@ -44,7 +45,7 @@ def audio():
     return sig.astype(np.float32)
 
 
-@pytest.mark.parametrize("hop", [512, 1024])
+@pytest.mark.parametrize("hop", [128, 512, 1024])
 def test_plain_matches_jax_dif_kernel(audio, hop):
     cfg = FrontendConfig(hop_length=hop)
     ref = np.asarray(stft_features_dif_pallas_tm(jnp.asarray(audio), JaxFrontendConfig(hop_length=hop)))
@@ -63,6 +64,21 @@ def test_plain_matches_numpy_oracle(audio, hop):
     np.testing.assert_array_equal(
         spectrogram_features_np(audio, cfg), jax_features_np(audio, JaxFrontendConfig(hop_length=hop))
     )
+
+
+@pytest.mark.parametrize("S", [1025, 1536, 2047, 4133])
+@pytest.mark.parametrize("hop", [128, 512, 1024])
+def test_plain_matches_jax_dif_kernel_where_the_padding_reaches_every_frame(audio, hop, S):
+    """The plain version reads its frames through the reflect index map, not
+    a padded copy: at lengths just over n_fft/2 nearly every frame takes
+    the reflection, and it still matches the JAX kernel, which pads in XLA."""
+    x = np.stack([audio[:S], audio[-S:]])
+    cfg, jcfg = FrontendConfig(hop_length=hop), JaxFrontendConfig(hop_length=hop)
+    ref = np.asarray(stft_features_dif_pallas_tm(jnp.asarray(x), jcfg))
+    got = stft_features_dif_plain(torch.from_numpy(x), cfg).numpy()
+    assert got.shape == ref.shape == (2, 1 + S // hop, 1025)
+    _bounds(np.abs(got - ref))
+    _bounds(np.abs(got - np.swapaxes(jax_features_np(x, jcfg), -1, -2)))
 
 
 def test_wrapper_takes_plain_version_on_cpu(audio):

@@ -145,8 +145,8 @@ def test_production_size_factorization_matches_oracle():
 
 
 def test_kernel_tables_are_shared_with_the_dif_kernel():
-    """The DIT kernel reads the DIF kernel's flat table: its twiddle
-    ``W_2048^(p*k2)`` is that buffer's ``[16, 128]`` block."""
+    """The DIT factorization's twiddle ``W_2048^(p*k2)`` is the ``[16, 128]``
+    block of the DIF kernel's flat table, the kernel both entries launch."""
     _, twc, tws, _, _ = stft_ct._ct_tables_f64(2048)
     flat = stft_dif._kernel_tables("cpu").numpy()
     np.testing.assert_array_equal(flat[2048 : 2048 + 2048].reshape(16, 128), twc)

@@ -17,11 +17,15 @@ import pytest
 import torch
 
 from tpumix_torch.config import FrontendConfig
-from tpumix_torch.ops import _build
 import dataclasses
+
+import torch.nn.functional as F
+
+from tpumix_torch.ops import _build
 
 from tpumix_torch.models.blocks import ConvBlock2d
 from tpumix_torch.ops import stft_basis
+from tpumix_torch.ops import stft_dif as stft_dif_module
 from tpumix_torch.ops.conv_block import (
     K_CHUNK,
     conv_block_fused,
@@ -48,10 +52,13 @@ from tpumix_torch.ops.stft_ct import (
 from tpumix_torch.ops.stft_dif import (
     _dif_tables_f64,
     _kernel_tables,
+    _output_map,
+    _reflect_index,
     stft_features_dif,
     stft_features_dif_plain,
     stft_features_dif_tm_hybrid,
 )
+from tpumix_torch.ops.stft_dif import launch_kernel as dif_launch_kernel
 
 
 @pytest.fixture
@@ -136,6 +143,53 @@ def test_frontend_kernel_matches_plain(cuda_device, name, which, tone):
         assert kernel.launches == before + 1
 
 
+EDGE_LENGTHS = (1025, 1536, 2047, 4133)  # reflect padding reaches every frame, or most
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", EDGE_LENGTHS)
+@pytest.mark.parametrize("entry,hop", [("dif", 128), ("dif", 512), ("dif", 1024), ("ct", 16),
+                                       ("ct", 32), ("ct", 64)])
+def test_frontend_kernel_at_edge_lengths(cuda_device, entry, hop, S):
+    """Both entries launch the one DIF kernel, which reflects the index
+    itself: held to each entry's own float64 plain version (the DIT entry to
+    the DIT factorization) where the padding reaches most frames."""
+    kernel, plain = {"dif": (stft_features_dif, stft_features_dif_plain),
+                     "ct": (stft_features_ct, stft_features_ct_plain)}[entry]
+    cfg = FrontendConfig(hop_length=hop)
+    x = torch.from_numpy(_audio(rows=4, tone=0.3)[:, :S].copy()).to(cuda_device)
+    counts = stft_features_dif.launches, stft_features_ct.launches
+    got = kernel(x, cfg)
+    torch.cuda.synchronize()
+    assert (stft_features_dif.launches - counts[0], stft_features_ct.launches - counts[1]) == (
+        (1, 0) if entry == "dif" else (0, 1))
+    assert got.shape == (4, 1 + S // hop, 1025)
+    d = (got - plain(x, cfg)).abs().cpu().numpy()
+    assert d.max() <= 1e-5 and d.mean() < 1e-4 and np.quantile(d, 0.999) < 5e-3
+    assert bool((got[-1] == -(100.0 - 2.0 ** -17)).all())  # the silent row's amin value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [64, 512])
+def test_dif_kernel_stage_stops_launch(cuda_device, hop):
+    """The measurement-only launches that stop after stage A or after C1
+    run and write one finite value per block of 4 frames; the whole launch
+    is the entry's; any other stop is refused."""
+    cfg = FrontendConfig(hop_length=hop)
+    x = torch.from_numpy(_audio(rows=3, seconds=0.5, tone=0.1)).to(cuda_device)
+    ref = stft_features_dif_plain(x, cfg) if hop == 512 else stft_features_ct_plain(x, cfg)
+    got = dif_launch_kernel(x, cfg, "stft_dif")
+    assert float((got - ref).abs().max()) <= 1e-5
+    blocks = 3 * -(-got.shape[1] // 4)
+    for stages in (1, 2):
+        part = dif_launch_kernel(x, cfg, "stft_dif", stages)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(part.reshape(-1)[:blocks]).all())
+    for stages in (0, 4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dif_launch_kernel(x, cfg, "stft_dif", stages)
+
+
 @pytest.mark.cuda
 def test_basis_kernel_takes_another_n_fft(cuda_device):
     cfg = FrontendConfig(n_fft=256, hop_length=32, sample_rate=8000, implementation="pallas")
@@ -189,6 +243,11 @@ def test_dif_kernel_rejects_what_it_cannot_take(cuda_device):
         stft_features_dif(x.double(), FrontendConfig(hop_length=512))
     with pytest.raises(ValueError):
         stft_features_dif(x, FrontendConfig(n_fft=4096, hop_length=512))
+    for kernel in (stft_features_dif, stft_features_ct):  # where F.pad(mode="reflect") refuses
+        with pytest.raises(ValueError, match="more than 1024"):
+            kernel(x[:1024], FrontendConfig(hop_length=512))
+        with pytest.raises(ValueError, match="reflection"):
+            kernel(x, FrontendConfig(hop_length=512, pad_mode="constant"))
 
 
 @pytest.mark.cuda
@@ -331,11 +390,83 @@ def test_stage_a_factors_elide_exact_zeros():
     assert c16[1, 4] == 0.0 and c16[3, 4] == 0.0
 
 
+@pytest.mark.parametrize("S", EDGE_LENGTHS)
+@pytest.mark.parametrize("hop", [16, 64, 128, 512, 1024])
+def test_reflect_index_map_is_centre_reflect_padding(S, hop):
+    """The map the DIF kernel applies per load (and its plain version
+    gathers with) reads the frames ``F.pad(mode="reflect")`` + unfold read."""
+    x = torch.arange(S, dtype=torch.float64)[None]
+    T = 1 + S // hop
+    padded = F.pad(x[None], (1024, 1024), mode="reflect")[0]
+    frames = padded.unfold(-1, 2048, hop)[:, :T]
+    idx = _reflect_index(S, T, hop, 2048)
+    assert idx.shape == (T, 2048) and int(idx.min()) >= 0 and int(idx.max()) <= S - 1
+    assert torch.equal(x[:, idx], frames)
+
+
+def _dif_kernel_writes():
+    """``(bin, k1, k2)`` of every feature store of the DIF kernel's C2 stage,
+    in the order csrc/stft_dif.cu issues them: unit (u, k1) holds X_k1[u +
+    16v] for v = 0..7."""
+    writes = []
+    for u in range(16):
+        for k1 in range(9):
+            writes += [(16 * u + k1 + 256 * v, k1, u + 16 * v) for v in range(4)]
+            if 1 <= k1 < 8:
+                writes += [(1024 - 16 * u - k1 - 256 * v, k1, u + 16 * (v + 4)) for v in range(4)]
+            elif k1 == 0 and u == 0:
+                writes.append((1024, 0, 64))
+    return writes
+
+
+def test_dif_output_map_writes_every_bin_once():
+    """9 series of 128 cover the 1025 onesided bins: each bin once, those
+    with k1 = 9..15 from their conjugate mirror, and the kernel's stores
+    are the plain version's map."""
+    src = _output_map(2048)
+    assert src.shape == (1025,) and len(set(src.tolist())) == 1025
+    k1, k2 = src // 128, src % 128
+    assert int(k1.max()) == 8
+    assert int(k2[k1 == 0].max()) == 64 and int(k2[k1 == 8].max()) == 63
+    k = torch.arange(1025)
+    mirror = (k % 16) > 8
+    assert torch.equal(k1[mirror], 16 - k[mirror] % 16)
+    assert torch.equal(k2[mirror], 127 - k[mirror] // 16)
+    writes = _dif_kernel_writes()
+    assert sorted(b for b, _, _ in writes) == list(range(1025))
+    assert all(int(src[b]) == 128 * s + t for b, s, t in writes)
+
+
+@pytest.mark.parametrize("hop", [16, 32, 64])
+def test_dif_factorization_matches_the_dit_plain_version_at_k4_hops(hop):
+    """What the DIT entry launches on the card — the DIF factorization at a
+    hop that is a multiple of 16 — is the DIT float64 plain version's
+    function: the two float64 sums agree far inside the float32 rounding of
+    the features, also where the padding reaches the frames."""
+    cfg = FrontendConfig(hop_length=hop)
+    x = torch.from_numpy(_audio(rows=3, seconds=0.1, tone=0.3))  # 4410 samples
+    for S in (1025, 4410):
+        dif = stft_dif_module._dif_db(x[:, :S], cfg).to(torch.float32)
+        dit = stft_features_ct_plain(x[:, :S], cfg)
+        assert dif.shape == dit.shape == (3, 1 + S // hop, 1025)
+        assert float((dif - dit).abs().max()) <= 1e-5
+        assert bool((dif[-1] == -100.0).all()) and torch.equal(dif[-1], dit[-1])  # the silent row
+
+
+def test_dif_plain_refuses_what_reflect_padding_refuses():
+    cfg = FrontendConfig(hop_length=512)
+    with pytest.raises(ValueError, match="more than 1024"):
+        stft_features_dif_plain(torch.zeros(1024), cfg)
+    assert stft_features_dif_plain(torch.zeros(1025), cfg).shape == (3, 1025)
+    with pytest.raises(ValueError, match="reflection"):
+        stft_features_dif(torch.zeros(4096), FrontendConfig(hop_length=512, pad_mode="constant"))
+
+
 def test_build_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
     assert {"-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared"} <= set(_build.NVCC_FLAGS)
     a = _build.library_path("stft_dif")
     assert a != _build.library_path("conv_block")
-    assert set(_build.SIGNATURES) == {"stft_dif", "conv_block", "stft_basis", "stft_ct"}
+    assert set(_build.SIGNATURES) == {"stft_dif", "conv_block", "stft_basis"}
     (tmp_path / "stft_dif.cu").write_text("// changed source\n")
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     b = _build.library_path("stft_dif")
@@ -354,9 +485,16 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
         ctypes.c_void_p,)
     # stft_basis_launch: xp, out, table, cos basis, sin basis, then the geometry
     assert _build.SIGNATURES["stft_basis"][1][:5] == (ctypes.c_void_p,) * 5
+    # stft_dif_launch: unpadded rows, out, table, B, T, S (64-bit), hop, scale, amin^2, stream
+    dif = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2 + (ctypes.c_longlong, ctypes.c_int,
+                                                          ctypes.c_float, ctypes.c_double)
+    assert _build.SIGNATURES["stft_dif"][1] == dif + (ctypes.c_void_p,)
     assert set(_build.EXTRA_ENTRIES) <= set(_build.SIGNATURES)
     extra = {fn: argtypes for entries in _build.EXTRA_ENTRIES.values() for fn, argtypes in entries}
-    assert set(extra) == {"conv_block_route", "conv_block_undrained_launch", "stft_basis_route"}
+    assert set(extra) == {"conv_block_route", "conv_block_undrained_launch", "stft_basis_route",
+                          "stft_dif_stages_launch"}
+    # the same launch with the stage to stop after before the stream
+    assert extra["stft_dif_stages_launch"] == dif + (ctypes.c_int, ctypes.c_void_p)
     assert extra["conv_block_route"] == (ctypes.c_int,) * 7  # N, H, W, Cin, kh, kw, Cout
     assert extra["stft_basis_route"] == (ctypes.c_int,)
     assert extra["conv_block_undrained_launch"] == _build.SIGNATURES["conv_block"][1]

@@ -40,8 +40,6 @@ SIGNATURES = {
     "stft_basis": ("stft_basis_launch",
                    (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, ctypes.c_float,
                     ctypes.c_double, _P)),
-    "stft_ct": ("stft_ct_launch",
-                (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_double, _P)),
 }
 # further C entries of a library: shape queries it answers, and launches that
 # exist for measurement only
@@ -52,6 +50,9 @@ EXTRA_ENTRIES = {
          (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     ),
     "stft_basis": (("stft_basis_route", (_I,)),),
+    "stft_dif": (("stft_dif_stages_launch",
+                  (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, ctypes.c_float, ctypes.c_double,
+                   _I, _P)),),
 }
 
 

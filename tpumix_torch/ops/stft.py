@@ -14,6 +14,8 @@ plain torch version on the CPU; ``"auto"`` picks the first that applies:
   (tpumix_torch/ops/stft_dif.py); every model preset.
 * ``"ct_pallas"`` — decimation-in-time factorized
   (tpumix_torch/ops/stft_ct.py); hops that are multiples of 16 but not of 128.
+  On the card it launches the DIF kernel, which computes the same function
+  at any hop; its plain version keeps the DIT factorization.
 * ``"pallas"`` — the naive windowed basis (tpumix_torch/ops/stft_basis.py);
   any ``n_fft % hop == 0``.
 * ``"fft"`` — ``torch.stft``, as the JAX ``fft`` path is XLA's FFT.
@@ -53,7 +55,8 @@ def pad_center(x: torch.Tensor, n_fft: int, pad_mode: str) -> torch.Tensor:
 
 
 def padded_rows(x: torch.Tensor, cfg: FrontendConfig):
-    """What every fused frontend starts from: ``[..., S]`` folded to float32
+    """What the naive-basis kernel and the DIT plain version start from
+    (the DIF kernel pads inside): ``[..., S]`` folded to float32
     rows ``[B, S + n_fft]``, centre-padded.  Returns ``(rows, leading shape,
     B, frame count 1 + S // hop)``."""
     lead = x.shape[:-1]

@@ -14,17 +14,18 @@ k1-major, which is natural order.  It applies where ``ct_applicable(cfg)``
 (``n_fft % hop == 0``, ``hop % 16 == 0``, centre padding) and is what
 ``"auto"`` picks for hops that are multiples of 16 but not of 128.
 
-``stft_features_ct`` launches the CUDA kernel (tpumix_torch/csrc/stft_ct.cu)
-for a CUDA tensor — it reads the padded signal and does the stride-16 phase
-gather itself, so the JAX package's prebuilt ``[B, 16, T, 128]`` phase-frame
-tensor has no counterpart — and runs ``stft_features_ct_plain``, the same
-three stages as matmuls, for a CPU tensor.  Both compute in float64 and round
-once to float32 features (see the note in the kernel source).
+``stft_features_ct`` launches the DIF kernel (tpumix_torch/csrc/stft_dif.cu)
+for a CUDA tensor: on Hopper neither reason for a second factorization holds
+(Mosaic's stride-16 slices, the DIF kernel's 128-aligned ones), that kernel
+reads a frame at any hop and computes the same function, so the JAX
+package's prebuilt ``[B, 16, T, 128]`` phase-frame tensor and the DIT
+kernel itself have no counterpart.  For a CPU tensor it runs
+``stft_features_ct_plain``, the DIT factorization as matmuls in float64,
+which stays the accuracy reference the kernel is held to at these hops.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Optional
@@ -35,9 +36,7 @@ import torch
 from tpumix_torch.config import _CT_N1, FrontendConfig, ct_applicable
 from tpumix_torch.ops.stft import padded_rows
 from tpumix_torch.ops.stft_basis import make_tm_hybrid
-from tpumix_torch.ops.stft_dif import _kernel_tables
-
-_KERNEL_NFFT = 2048  # the CUDA kernel is specialised for 16 x 128
+from tpumix_torch.ops.stft_dif import launch_kernel
 
 
 @functools.lru_cache(maxsize=8)
@@ -103,34 +102,17 @@ def stft_features_ct_plain(x: torch.Tensor, cfg: Optional[FrontendConfig] = None
 def stft_features_ct(x: torch.Tensor, cfg: Optional[FrontendConfig] = None) -> torch.Tensor:
     """DIT frontend, time-major ``[..., S]`` -> ``[..., T, bins]`` float32.
 
-    CUDA tensor: one launch of the hand-written kernel (``launches`` counts
-    them).  CPU tensor: :func:`stft_features_ct_plain`."""
+    CUDA tensor: one launch of the DIF kernel at this hop (``launches``
+    counts them).  CPU tensor: :func:`stft_features_ct_plain`."""
     cfg = cfg or FrontendConfig()
     _check(cfg)
     if x.device.type == "cpu":
         return stft_features_ct_plain(x, cfg)
     if x.device.type != "cuda":
         raise ValueError(f"stft_features_ct takes a CPU or CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"stft_features_ct kernel takes float32, got {x.dtype}")
-    if cfg.n_fft != _KERNEL_NFFT:
-        raise ValueError(f"the DIT kernel is built for n_fft={_KERNEL_NFFT}, got {cfg.n_fft}")
-    from tpumix_torch.ops import _build
-
-    xp, lead, B, T = padded_rows(x, cfg)
-    xp = xp.contiguous()
-    out = torch.empty((B, T, cfg.num_bins), dtype=torch.float32, device=x.device)
-    tables = _kernel_tables(str(x.device))
-    lib = _build.load("stft_ct")
-    err = lib.stft_ct_launch(
-        xp.data_ptr(), out.data_ptr(), tables.data_ptr(), B, T, xp.shape[-1],
-        cfg.hop_length, ctypes.c_float(0.5 * cfg.db_multiplier / math.log(10.0)),
-        ctypes.c_double(cfg.amin * cfg.amin), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"stft_ct kernel launch failed: cudaError_t {err}")
+    out = launch_kernel(x, cfg, "stft_ct")
     stft_features_ct.launches += 1
-    return out.reshape(*lead, T, cfg.num_bins)
+    return out
 
 
 stft_features_ct.launches = 0
