@@ -4,10 +4,13 @@
 
 Builds the CUDA kernels from ``tpumix_torch/csrc``, holds each kernel against
 its plain PyTorch version at the shapes of the main paths, and drives those
-paths at the full width of ``scalar2s``: serving (``SongMixer`` with
-``scalar2s_synth.npz``, then ``python -m tpumix_torch mix``) and training
+paths at the full width of ``scalar2s``: mixing (``SongMixer`` with
+``scalar2s_synth.npz``, then ``python -m tpumix_torch mix``), training
 (``python -m tpumix_torch train`` / ``export-checkpoint`` on a seeded corpus,
-then ``Trainer`` with each fused frontend), and checks what comes out.  It
+then ``Trainer`` with each fused frontend), the HTTP service (``scalar2s``
+and ``resnet18``: ``/gains``, ``/mix``, ``/stream``; ``python -m tpumix_torch
+serve``) and evaluation (``evaluate`` with the device and the host loudness
+meter), and checks what comes out.  It
 needs one CUDA device and exits non-zero, printing no result, without one or
 outside a checkout of the repository.  The last two lines are the
 ``{"kernels": ...}`` record and ``{"ok": true, "device": ...}``.
@@ -16,6 +19,7 @@ outside a checkout of the repository.  The last two lines are the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -200,12 +204,20 @@ def phase_build():
             log(f"[build] {name}: {fn}: {regs} registers, spill stores {st} B, spill loads {ld} B")
 
 
-def _k1_audio(tone: float, noise: float) -> np.ndarray:
-    """``[64, 4, 88200]``: a tone per row over white noise; stem 3 silent."""
+@functools.lru_cache(maxsize=2)
+def _k1_parts(samples: int):
+    """The unit tones and the white noise of ``_k1_audio``, drawn once per
+    length (float64, ``[64, 4, samples]`` each)."""
     rng = np.random.default_rng(1)
-    t = np.arange(88200) / SR
+    t = np.arange(samples) / SR
     freqs = rng.uniform(40, 8000, size=(64, 4, 1))
-    audio = tone * np.sin(2 * np.pi * freqs * t) + noise * rng.standard_normal((64, 4, t.size))
+    return np.sin(2 * np.pi * freqs * t), rng.standard_normal((64, 4, t.size))
+
+
+def _k1_audio(tone: float, noise: float, samples: int = 88200) -> np.ndarray:
+    """``[64, 4, samples]``: a tone per row over white noise; stem 3 silent."""
+    sines, white = _k1_parts(samples)
+    audio = tone * sines + noise * white
     audio[:, 3] = 0.0  # one silent stem: every bin clamps to amin
     return audio.astype(np.float32)
 
@@ -1103,7 +1115,476 @@ def phase_train(smi):
     return counts
 
 
-PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "cli", "train")
+def _http(addr, method, path, body=None, timeout=900):
+    """``(status, body bytes, wall s)`` of one request on its own connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection(addr[0], addr[1], timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        headers = {} if body is None else {"Content-Length": str(len(body))}
+        conn.request(method, path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, r.read(), time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _ok(what, status, body):
+    if status != 200:
+        raise AssertionError(f"{what}: HTTP {status}: {body[:500]!r}")
+
+
+def _wait_warm(addr, proc=None, timeout=600.0):
+    """Poll ``/healthz`` until the server reports warm; seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode} while warming")
+        status, body, _ = _http(addr, "GET", "/healthz", timeout=60)
+        _ok("/healthz", status, body)
+        if json.loads(body)["warm"]:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("the server did not report warm in time")
+        time.sleep(0.2)
+
+
+def _stereo(stems: np.ndarray) -> dict:
+    """A stereo stem dict from ``[4, S]`` mono stems: the right channel is the
+    left one 5 ms later at 0.8, so the mono downmix is neither channel."""
+    from tpumix_torch.infer.mixer import STEMS
+
+    return {t: np.stack([stems[i], 0.8 * np.roll(stems[i], 220)]) for i, t in enumerate(STEMS)}
+
+
+def _served_kernel_checks():
+    """K1 at the shapes the service gives it that no earlier phase holds to
+    its plain version: one chunk at hop 512 (``[1, 4, 88200]``, what
+    ``/stream`` launches) and resnet18's 64-chunk segment at hop 1024
+    (``[64, 4, 220500]``, every resnet18 ``/gains`` and ``/mix``), each at
+    every level of ``K1_LEVELS`` and the ``[k1]`` bounds; and K2 at the
+    trunk's shapes of one chunk (rtol 1e-4 / atol 5e-5).  All against the
+    float64 plain versions."""
+    import torch
+
+    from tpumix_torch.config import FrontendConfig
+    from tpumix_torch.ops.conv_block import (
+        conv_block_fused,
+        conv_block_fused_plain,
+        conv_block_route,
+    )
+    from tpumix_torch.ops.stft_dif import stft_features_dif, stft_features_dif_plain
+
+    for hop, rows, samples in ((512, 1, 88200), (1024, 64, 220500)):
+        cfg = FrontendConfig(hop_length=hop)
+        shape = (rows, 4, 1 + samples // hop, 1025)
+        for label, tone, noise in K1_LEVELS:
+            x = torch.from_numpy(_k1_audio(tone, noise, samples)[:rows].copy()).cuda()
+            got = stft_features_dif(x, cfg)
+            torch.cuda.synchronize()
+            mx, mean, p999, at = _db_errors(got, stft_features_dif_plain(x, cfg))
+            log(f"[serve] K1 at {list(x.shape)}, hop {hop}, {label}: |kernel - plain (f64)| dB "
+                f"max {mx:.4e} (in a {at[0]:.1f} dB bin) mean {mean:.3e} p99.9 {p999:.3e}")
+            if not (mx < 1e-5 and mean < 1e-4 and p999 < 5e-3) or got.shape != shape:
+                raise AssertionError(f"K1 at {list(x.shape)}, hop {hop} disagrees with its plain "
+                                     f"version ({label}) or is not {shape}")
+            if not bool(torch.isfinite(got).all()) or not bool((got[:, 3] == SILENT_DB).all()):
+                raise AssertionError(f"K1 at {list(x.shape)}, hop {hop}: not finite, or the "
+                                     f"silent stem is not the amin value")
+            del x, got
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for xs, ws in TRUNK_SHAPES:
+        xs = (1,) + xs[1:]
+        x = torch.randn(xs, device="cuda", generator=g)
+        w = torch.randn(ws, device="cuda", generator=g) / float(np.sqrt(np.prod(ws[:3])))
+        s = 0.5 + torch.rand(ws[-1], device="cuda", generator=g)
+        t = 0.1 * torch.randn(ws[-1], device="cuda", generator=g)
+        got = conv_block_fused(x, w, s, t)
+        torch.cuda.synchronize()
+        ref = conv_block_fused_plain(x, w, s, t)
+        diff = (got - ref).abs()
+        ok = bool((diff <= 5e-5 + 1e-4 * ref.abs()).all())
+        log(f"[serve] K2 at one chunk {xs} * {ws}: route {conv_block_route(xs, ws)}; vs plain "
+            f"(f64) max abs {float(diff.max()):.3e}; within(rtol 1e-4, atol 5e-5) {ok}")
+        if not ok:
+            raise AssertionError(f"K2 at one chunk disagrees with its plain version at {xs}")
+
+
+# (server, path, song seconds) of the requests [serve] sends and checks ("cli":
+# the CLI's server, in a subprocess).  resnet18's /mix at 300 s is left out: it
+# runs on the card what its /gains at 300 s runs, and the host epilogue that
+# scalar2s's /mix at 300 s already holds.
+SERVED = (("scalar2s K2 trunk", "/gains", 30), ("scalar2s K2 trunk", "/mix", 30),
+          ("scalar2s K2 trunk", "/gains", 300), ("scalar2s K2 trunk", "/mix", 300),
+          ("resnet18", "/gains", 30), ("resnet18", "/mix", 30), ("resnet18", "/gains", 300),
+          ("cli", "/gains", 30), ("cli", "/mix", 30))
+
+
+def phase_serve(smi):
+    """The HTTP service on the card, as users drive it: in-process servers for
+    ``scalar2s`` (``scalar2s_synth.npz``, K2 trunk) and ``resnet18``
+    (``resnet18_synth.npz``), and ``python -m tpumix_torch serve --port 0``
+    in a subprocess on the default trunk, each warmed; ``/gains`` and ``/mix``
+    on seeded 30 s and 300 s stereo songs (``SERVED``) and a chunked
+    ``/stream`` of 50 two-second chunks.  Every response must be 200 and equal
+    what the same mixer computes in process; the 30 s gains also agree with
+    the CPU path.
+    Returns the kernels' launches on the served path (the in-process
+    servers' requests).  The subprocess starts first, so that its start-up
+    overlaps the rest."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "tpumix_torch", "serve", "--port", "0"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        return _serve_checks(smi, proc, t_phase)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _serve_checks(smi, proc, t_phase):
+    import threading
+
+    import torch
+
+    from tpumix_torch.assets import load_checkpoint
+    from tpumix_torch.config import MixConfig, preset
+    from tpumix_torch.data import wavio
+    from tpumix_torch.infer.mixer import STEMS, SongMixer
+    from tpumix_torch.infer.streaming import StreamingMixer
+    from tpumix_torch.models.convert import state_dict_from_jax
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.ops.conv_block import conv_block_fused
+    from tpumix_torch.ops.stft_dif import stft_features_dif
+    from tpumix_torch.serve import encode_stems_wav, serve
+
+    _served_kernel_checks()
+
+    def mixer_for(name, device, conv_impl="auto", mix_cfg=None):
+        cfg = dataclasses.replace(preset(name), conv_impl=conv_impl)
+        model = build_model(cfg)
+        model.load_state_dict(state_dict_from_jax(load_checkpoint(f"{name}_synth")))
+        return SongMixer(model, cfg, mix_cfg, device=device)
+
+    servers, threads = {}, []
+    for label, name, conv_impl in (("scalar2s K2 trunk", "scalar2s", "pallas"),
+                                   ("resnet18", "resnet18", "auto")):
+        httpd = serve(mixer_for(name, "cuda", conv_impl), host="127.0.0.1", port=0,
+                      model_name=name)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        threads.append((httpd, thread))
+        t0 = time.perf_counter()
+        warming = threading.Thread(target=httpd.service.warm)
+        warming.start()
+        status, body, _ = _http(httpd.server_address, "GET", "/healthz")
+        _ok("/healthz", status, body)
+        during = json.loads(body)["warm"]
+        warming.join()
+        warm_s = time.perf_counter() - t0
+        status, body, _ = _http(httpd.server_address, "GET", "/healthz")
+        if status != 200 or not json.loads(body)["warm"]:
+            raise AssertionError(f"{label}: not warm after warm() returned")
+        log(f"[serve] {label} in process on port {httpd.server_address[1]}: warm() "
+            f"{warm_s:.2f} s (kernels built by [build]); /healthz during warm-up said warm "
+            f"{during}")
+        servers[label] = httpd
+
+    cli_addr, lines = None, []
+    while cli_addr is None:
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError("serve exited before printing its address:\n"
+                                 + "".join(lines))
+        lines.append(line)
+        m = re.match(r"\[serve\] scalar2s on http://([\d.]+):(\d+)", line)
+        if m:
+            cli_addr = (m.group(1), int(m.group(2)))
+    up_s = time.perf_counter() - t_phase
+    warm_s = _wait_warm(cli_addr, proc)
+    log(f"[serve] python -m tpumix_torch serve --port 0: address read {up_s:.2f} s after "
+        f"start (port {cli_addr[1]}), warm {warm_s:.2f} s later ({up_s + warm_s:.2f} s from "
+        f"start, beside the checks above; kernels already built)")
+
+    songs = {30: _stereo(make_song(30.0, seed=31)), 300: _stereo(make_song(300.0, seed=32))}
+    bodies = {sec: encode_stems_wav(tr) for sec, tr in songs.items()}
+    stream_stems = make_song(100.0, seed=33)
+
+    # the served path: every request of the in-process servers, counted
+    stft_features_dif.launches = 0
+    conv_block_fused.launches = 0
+    replies = {}
+    for label, path, secs in SERVED:
+        if label == "cli":
+            continue
+        status, body, wall = _http(servers[label].server_address, "POST", path, bodies[secs])
+        _ok(f"{label} {path} {secs} s", status, body)
+        replies[label, path, secs] = (body, wall)
+    s2 = servers["scalar2s K2 trunk"]
+    C = s2.service.mixer.chunk_samples
+    blocks = [stream_stems[:, i * C:(i + 1) * C].astype("<f4") for i in range(50)]
+    streamed, push_ms = _stream(s2.server_address, blocks, C)
+    launches = {"stft_features_dif": stft_features_dif.launches,
+                "conv_block_fused": conv_block_fused.launches}
+    log(f"[serve] served path (in-process servers' requests): launches stft_features_dif "
+        f"{launches['stft_features_dif']} conv_block_fused {launches['conv_block_fused']}")
+    for label, path, secs in SERVED:
+        if label != "cli":
+            continue
+        status, body, wall = _http(cli_addr, "POST", path, bodies[secs])
+        _ok(f"{label} {path} {secs} s", status, body)
+        replies[label, path, secs] = (body, wall)
+    for httpd, thread in threads:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    # what the same mixers compute in process, and the CPU path on 30 s
+    mixers = {label: httpd.service.mixer for label, httpd in servers.items()}
+    mixers["cli"] = mixer_for("scalar2s", "cuda")
+    cpu = {"scalar2s K2 trunk": mixer_for("scalar2s", "cpu", mix_cfg=MixConfig(max_chunks=16)),
+           "resnet18": mixer_for("resnet18", "cpu", mix_cfg=MixConfig(max_chunks=8))}
+    smoothed = {}  # mix_song_smooth of each served song, shared by its /gains and /mix
+    for (label, path, secs), (body, wall) in replies.items():
+        mixer, tracks = mixers[label], songs[secs]
+        if (label, secs) not in smoothed:
+            smoothed[label, secs] = mixer.mix_song_smooth(tracks)
+        mixed_tracks, raw, smooth = smoothed[label, secs]
+        if path == "/gains":
+            payload = json.loads(body)
+            mono = np.stack([tracks[t].mean(axis=0) for t in STEMS])
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            gains = mixer.song_gains(mono)
+            b.record()
+            b.synchronize()
+            gap = max(float(np.abs(np.asarray(payload[k][t]) - np.asarray(ref[t])).max())
+                      for k, ref in (("raw", raw), ("smooth", smooth)) for t in STEMS)
+            line = (f"[serve] {label} /gains {secs} s: body {len(bodies[secs])} B in, "
+                    f"{len(body)} B out; wall {wall * 1e3:.1f} ms; gains {a.elapsed_time(b):.2f} ms "
+                    f"by CUDA events around song_gains of the same song in process ({gains.shape[0]} "
+                    f"gains; host packing between launches included); |served - in process| max "
+                    f"{gap:.2e}")
+            if gap > 1e-6:
+                raise AssertionError(f"{label} /gains {secs} s differs from mix_song_smooth")
+            if secs == 30 and label in cpu:
+                served = 2.0 * np.log10(np.array([payload["raw"][t] for t in STEMS]).T)
+                mae = float(np.abs(served - cpu[label].song_gains(mono)).mean(axis=0).max())
+                line += f"; dB-scalar MAE vs the CPU path {mae:.3e}"
+                if mae > 1e-3:
+                    raise AssertionError(f"{label}: served gains disagree with the CPU path")
+            log(line)
+        else:
+            import io
+
+            audio, sr = wavio.read(io.BytesIO(body), always_2d=True)
+            ref = sum(mixed_tracks[t] for t in STEMS)  # mix_song: summed, peak-normalised
+            ref = ref / np.max(np.abs(ref))
+            gap = float(np.abs(audio.T - ref).max()) if audio.T.shape == ref.shape else np.inf
+            log(f"[serve] {label} /mix {secs} s: body {len(bodies[secs])} B in, {len(body)} B "
+                f"out; wall {wall * 1e3:.1f} ms; |served - mix_song| max {gap:.2e}")
+            if sr != SR or gap > 1e-6 or not np.isfinite(audio).all():
+                raise AssertionError(f"{label} /mix {secs} s differs from mix_song")
+
+    seg_ms = {}
+    g = torch.Generator(device="cuda").manual_seed(35)
+    for label, mixer in mixers.items():
+        wire = 0.1 * torch.randn(4, 64 * mixer.chunk_samples, device="cuda", generator=g)
+        seg_ms[label] = time_ms(lambda: mixer._gains_fn(wire, 64), reps=5, warmup=1)
+        del wire
+    log("[serve] one 64-chunk segment from a float32 wire on the card (_gains_fn: decode, K1, "
+        "trunk, heads), device ms, CUDA events, median of 5: " + "; ".join(
+            f"{label} {ms:.3f}" for label, ms in seg_ms.items()) + f"  ({smi})")
+
+    mixer = mixers["scalar2s K2 trunk"]
+    sm = StreamingMixer(mixer.model, mixer.model_cfg, device="cuda")
+    gap = max(float(np.abs(m - sm.push(b)).max()) for b, m in zip(blocks, streamed))
+    p50, p99 = np.percentile(push_ms, 50), np.percentile(push_ms, 99)
+    log(f"[serve] /stream scalar2s K2 trunk, {len(blocks)} chunks of 2 s: per push (send to "
+        f"answer) p50 {p50:.2f} ms p99 {p99:.2f} ms max {max(push_ms):.2f} ms; real-time "
+        f"factor {2000.0 / p50:.1f} at p50, {2000.0 / p99:.1f} at p99; |served - StreamingMixer| "
+        f"max {gap:.2e}  ({smi})")
+    if gap > 1e-6:
+        raise AssertionError("/stream differs from a StreamingMixer fed the same chunks")
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _stream(addr, blocks, C):
+    """Push ``blocks`` through ``POST /stream`` one at a time, each answered
+    before the next is sent: ``(mixed chunks, ms per push)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection(addr[0], addr[1], timeout=600)
+    conn.putrequest("POST", "/stream")
+    conn.putheader("Transfer-Encoding", "chunked")
+    conn.endheaders()
+
+    def send(block):
+        raw = block.tobytes()
+        conn.send(f"{len(raw):x}\r\n".encode() + raw + b"\r\n")
+
+    def read(fp):
+        out = b""
+        while len(out) < C * 4:
+            size = int(fp.readline().strip(), 16)
+            if size <= 0:
+                raise AssertionError("/stream ended early")
+            out += fp.read(size)
+            fp.read(2)
+        return np.frombuffer(out, dtype="<f4")
+
+    try:
+        t0 = time.perf_counter()
+        send(blocks[0])
+        resp = conn.response_class(conn.sock, method="POST")
+        resp.begin()
+        _ok("/stream", resp.status, b"")
+        mixed, push_ms = [read(resp.fp)], [(time.perf_counter() - t0) * 1e3]
+        for block in blocks[1:]:
+            t0 = time.perf_counter()
+            send(block)
+            mixed.append(read(resp.fp))
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+        conn.send(b"0\r\n\r\n")
+        if int(resp.fp.readline().strip(), 16) != 0:
+            raise AssertionError("/stream did not end with the last chunk")
+    finally:
+        conn.close()
+    return mixed, push_ms
+
+
+def _write_musdb_corpus(root: str, songs, seconds: float) -> None:
+    """A seeded MUSDB18-layout corpus: ``test/<song>/{stems,mixture}.wav``
+    (stereo float32) and ``manual_gain_mixes/<song>/{stems}.wav``, the same
+    stems at per-stem gains an engineer might set."""
+    from tpumix_torch.data import wavio
+    from tpumix_torch.infer.mixer import STEMS
+
+    manual = np.array([1.4, 0.8, 1.2, 0.6], np.float32)
+    for k, song in enumerate(songs):
+        tracks = _stereo(make_song(seconds, seed=40 + k))
+        for sub in ("test", "manual_gain_mixes"):
+            d = os.path.join(root, sub, song)
+            os.makedirs(d)
+            for i, t in enumerate(STEMS):
+                gain = manual[i] if sub == "manual_gain_mixes" else 1.0
+                wavio.write(os.path.join(d, f"{t}.wav"), (gain * tracks[t]).T, SR)
+        wavio.write(os.path.join(root, "test", song, "mixture.wav"),
+                    sum(tracks[t] for t in STEMS).T, SR)
+
+
+def phase_eval(smi):
+    """The evaluation path on the card, on a seeded two-song MUSDB18-layout
+    corpus: ``mean-loudness`` (equal to ``compute_mean_loudness``) beside
+    ``evaluate`` with the device meter and with the host meter (every stats
+    cell within 0.1 LU of its host-meter counterpart); then the device meter
+    on a seeded 300 s four-stem stereo song against the host meter (<= 0.1
+    LU), with its time and peak memory."""
+    import csv
+
+    import torch
+
+    from tpumix_torch.data.dataset import MultitrackAudioDataset
+    from tpumix_torch.infer.mixer import STEMS
+    from tpumix_torch.ops.loudness import integrated_loudness, integrated_loudness_torch
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        songs = ["EvalSongA", "EvalSongB"]
+        _write_musdb_corpus(tmp, songs, 20.0)
+        listing = os.path.join(tmp, "songs.txt")
+        with open(listing, "w") as f:
+            f.write("\n".join(songs) + "\n")
+        # the evaluate runs read the in-process mean loudness, so that the
+        # mean-loudness CLI runs beside them; its JSON must equal it
+        ml = os.path.join(tmp, "ml.json")
+        expected = MultitrackAudioDataset(os.path.join(tmp, "test"),
+                                          layout="musdb18").compute_mean_loudness()
+        with open(ml, "w") as f:
+            json.dump(expected, f)
+        stats, runs = {}, {}
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        evaluate = ["evaluate", "--data", tmp, "--layout", "musdb18", "--songlist", listing,
+                    "--mean-loudness", ml, "--out"]
+        t0 = time.perf_counter()
+        for run, args in (  # side by side
+                ("mean-loudness", ["mean-loudness", "--data", os.path.join(tmp, "test"),
+                                   "--layout", "musdb18", "--out", os.path.join(tmp, "cli.json")]),
+                ("device", evaluate + [os.path.join(tmp, "device"), "--device-meter"]),
+                ("host", evaluate + [os.path.join(tmp, "host")])):
+            runs[run] = subprocess.Popen([sys.executable, "-m", "tpumix_torch", *args], cwd=ROOT,
+                                         env=env, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+        try:
+            for run, proc in runs.items():
+                out, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"{run} failed ({proc.returncode}):\n{out}")
+        finally:
+            for proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "cli.json")) as f:
+            mean_loudness = json.load(f)
+        log(f"[eval] mean-loudness (three runs side by side, {wall:.1f} s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in mean_loudness.items()) + "; equal to compute_mean_loudness "
+            f"in process: {mean_loudness == expected}")
+        if mean_loudness != expected:
+            raise AssertionError(f"mean-loudness wrote {mean_loudness}, not {expected}")
+        for meter in ("device", "host"):
+            with open(os.path.join(tmp, meter, "stats.csv")) as f:
+                stats[meter] = list(csv.reader(f))
+            log(f"[eval] evaluate, {meter} meter: {stats[meter][1:]}")
+        worst = 0.0
+        for rd, rh in zip(stats["device"][1:], stats["host"][1:]):
+            vals = [(float(a), float(b)) for a, b in zip(rd[1:], rh[1:])]
+            if rd[0] != rh[0] or not all(np.isfinite(v).all() for v in vals):
+                raise AssertionError(f"bad stats rows {rd} / {rh}")
+            worst = max(worst, max(abs(a - b) for a, b in vals))
+        log(f"[eval] evaluate: every stats cell, device meter vs host meter: max |d| {worst:.4f} LU")
+        if worst > 0.1:
+            raise AssertionError("the device meter's stats disagree with the host meter's")
+
+    tracks = _stereo(make_song(300.0, seed=34))
+    batch = np.stack([tracks[t] for t in STEMS])  # [4, 2, S]
+    n = batch.shape[-1]
+    bucket = 1 << int(np.ceil(np.log2(n)))  # what the evaluator pads to
+    padded = torch.from_numpy(np.pad(batch, ((0, 0), (0, 0), (0, bucket - n)))).cuda()
+    exact = torch.from_numpy(batch).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dev = integrated_loudness_torch(padded, SR).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() - base
+    dev_exact = integrated_loudness_torch(exact, SR).cpu().numpy()
+    ms = time_ms(lambda: integrated_loudness_torch(padded, SR), reps=5, warmup=1)
+    t0 = time.perf_counter()
+    host = np.array([integrated_loudness(tracks[t].T, SR) for t in STEMS])
+    host_s = time.perf_counter() - t0
+    d_pad, d_exact = float(np.abs(dev - host).max()), float(np.abs(dev_exact - host).max())
+    log(f"[eval] device meter, 300 s four-stem stereo song [4, 2, {n}] padded to {bucket}: "
+        f"{ms:.2f} ms (CUDA events, median of 5), peak {peak / 2**30:.3f} GiB above the "
+        f"{padded.numel() * 4 / 2**30:.3f} GiB input; host meter (scipy lfilter, float64) "
+        f"{host_s:.3f} s, {host_s * 1e3 / ms:.0f}x the device meter; LUFS host "
+        f"{np.round(host, 4).tolist()} device {np.round(dev, 4).tolist()}: max |d| {d_pad:.4f} "
+        f"LU padded, {d_exact:.4f} LU unpadded  ({smi})")
+    if not np.isfinite(dev).all() or max(d_pad, d_exact) > 0.1:
+        raise AssertionError("the device meter disagrees with the host meter on 300 s")
+    log(f"[eval] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "cli", "train", "serve", "eval")
 
 
 def main(argv=None) -> int:
@@ -1197,6 +1678,11 @@ def main(argv=None) -> int:
     if "train" in phases:
         for kname, n in phase_train(smi).items():
             launches[kname] = launches.get(kname, 0) + n
+    if "serve" in phases:
+        for kname, n in phase_serve(smi).items():
+            launches[kname] = launches.get(kname, 0) + n
+    if "eval" in phases:
+        phase_eval(smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
     if set(phases) != set(PHASES):
         log(f"[done] partial run ({','.join(phases)}): no kernel record, no ok line")

@@ -47,7 +47,9 @@ def test_import_loads_no_jax_module():
         "tpumix_torch.infer.catalog, tpumix_torch.ops.stft_dif, tpumix_torch.ops.conv_block, "
         "tpumix_torch.ops.stft_basis, tpumix_torch.ops.stft_ct, tpumix_torch.ops._build, "
         "tpumix_torch.assets, tpumix_torch.train, tpumix_torch.data.dataset, "
-        "tpumix_torch.data.prefetch\n"
+        "tpumix_torch.data.prefetch, tpumix_torch.serve, tpumix_torch.infer.streaming, "
+        "tpumix_torch.eval.evaluator, tpumix_torch.models.resnet, tpumix_torch.ops.loudness, "
+        "tpumix_torch.data.songlists\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpumix'))\n"
@@ -88,6 +90,10 @@ def test_cli_device_flag_defaults_to_cuda():
     assert args.transfer_dtype == "float32" and not args.device_mix
     train = build_parser().parse_args(["train", "--data", "x"])
     assert train.device == "cuda" and train.model == "scalar2s" and train.batch_size == 48
+    serve = build_parser().parse_args(["serve"])
+    assert serve.device == "cuda" and serve.model == "scalar2s" and serve.port == 8080
+    evaluate = build_parser().parse_args(["evaluate", "--data", "x", "--mean-loudness", "m"])
+    assert evaluate.device == "cuda" and not evaluate.device_meter
 
 
 def test_smoke_script_fails_outside_checkout(tmp_path):

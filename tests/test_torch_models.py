@@ -93,8 +93,9 @@ def test_shipped_checkpoints_load(name, arch):
 
 def test_registry_contract():
     assert example_feature_shape(preset("scalar2s"), batch=2) == (2, 4, 1025, 173)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(preset("resnet18"))
+    resnet = build_model(preset("resnet18"))
+    assert type(resnet).__name__ == "GainResNet"
+    assert resnet.head1.fc.weight.shape == (1, 231)  # 33 * 7 at [1025, 216]
     a = build_model(preset("scalar1s"), generator=torch.Generator().manual_seed(3))
     b = build_model(preset("scalar1s"), generator=torch.Generator().manual_seed(3))
     for (ka, va), (_, vb) in zip(a.state_dict().items(), b.state_dict().items()):

@@ -3,6 +3,9 @@
     python -m tpumix_torch train              train a gain model
     python -m tpumix_torch export-checkpoint  run checkpoint -> compact inference .npz
     python -m tpumix_torch mix                mix one song (or a catalogue) with a checkpoint
+    python -m tpumix_torch evaluate           LoudnessEvaluator sweep -> stats.xlsx/csv
+    python -m tpumix_torch mean-loudness      per-class mean LUFS scan -> json
+    python -m tpumix_torch serve              HTTP mixing service
 
 The flags are those of the same ``python -m tpumix`` commands plus ``--device``
 (``cuda`` by default; ``cpu`` runs the kernels' plain versions).  ``train``
@@ -19,15 +22,15 @@ import sys
 
 
 def _songlist(args) -> list:
+    """``--songlist``: a text file with one song per line, or a registry key
+    (``tpumix_torch.data.songlists``)."""
+    from tpumix_torch.data import songlists
+
     if args.songlist and os.path.isfile(args.songlist):
         with open(args.songlist) as f:
             return [line.strip() for line in f if line.strip()]
     if args.songlist:
-        raise SystemExit(
-            f"--songlist {args.songlist!r} is not a file; the named songlist "
-            "registry of the JAX package is not ported yet — pass a text file "
-            "with one song per line"
-        )
+        return songlists.get_songlist(args.songlist)
     return []
 
 
@@ -235,6 +238,56 @@ def cmd_mix(args) -> int:
     return 0
 
 
+def cmd_evaluate(args) -> int:
+    from tpumix_torch.eval.evaluator import LoudnessEvaluator
+
+    mixer = _load_mixer(args)
+    with open(args.mean_loudness) as f:
+        mean_loudness = json.load(f)
+    ev = LoudnessEvaluator(mixer, mean_loudness, seed=args.seed, results_dir=args.out,
+                           device_meter=args.device_meter, device=args.device)
+    ev.process_songlist(args.data, _songlist(args), write_to_disk=args.export_wavs,
+                        out_path=os.path.join(args.out, "stats.xlsx"))
+    return 0
+
+
+def cmd_mean_loudness(args) -> int:
+    from tpumix_torch.data.dataset import MultitrackAudioDataset
+
+    d = MultitrackAudioDataset(args.data, songlist=_songlist(args) or None, layout=args.layout)
+    ml = d.compute_mean_loudness()
+    with open(args.out, "w") as f:
+        json.dump(ml, f, indent=2)
+    print(json.dumps(ml))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    import threading
+
+    from tpumix_torch.serve import serve
+
+    mixer = _load_mixer(args)
+    httpd = serve(mixer, host=args.host, port=args.port, model_name=args.model)
+    # accept connections before warming, so /healthz answers ("warm": false)
+    # while the kernels build and the first shapes run
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    host, port = httpd.server_address[:2]
+    print(f"[serve] {args.model} on http://{host}:{port}", flush=True)
+    if not args.no_warmup:
+        print("[serve] warming the device paths (kernel builds, first shapes; /healthz "
+              "reports \"warm\")...", flush=True)
+        httpd.service.warm()
+        print("[serve] warm", flush=True)
+    try:
+        while server_thread.is_alive():
+            server_thread.join(timeout=1.0)
+    except KeyboardInterrupt:
+        httpd.shutdown()
+    return 0
+
+
 _MODELS = ["scalar1s", "scalar1sL", "scalar2s", "scalar2sL", "resnet18"]
 
 
@@ -246,7 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
     def common(sp, checkpoint=True):
         sp.add_argument("--data", required=True, help="dataset root directory")
         sp.add_argument("--layout", default="medleydb", choices=["medleydb", "musdb18"])
-        sp.add_argument("--songlist", default="", help="text file, one song per line")
+        sp.add_argument("--songlist", default="",
+                        help="registry key (tpumix_torch.data.songlists) or a text file, "
+                             "one song per line")
         sp.add_argument("--model", default="scalar2s", choices=_MODELS)
         sp.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                         help="conv trunk dtype; float32 is the conformance dtype")
@@ -317,6 +372,35 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run smoothing epilogue + mixdown on the device (writes the "
                          "mono downmix)")
     sp.set_defaults(fn=cmd_mix)
+
+    sp = sub.add_parser("evaluate", help="loudness evaluation sweep")
+    common(sp)
+    sp.add_argument("--mean-loudness", required=True, help="json from mean-loudness")
+    sp.add_argument("--out", default="./experiment")
+    sp.add_argument("--export-wavs", action="store_true")
+    sp.add_argument("--device-meter", action="store_true",
+                    help="batched BS.1770 metering on --device (<=0.1 LU vs the host meter)")
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("mean-loudness", help="per-class mean LUFS scan")
+    common(sp, checkpoint=False)
+    sp.add_argument("--out", default="./mean_loudness.json")
+    sp.set_defaults(fn=cmd_mean_loudness)
+
+    sp = sub.add_parser("serve", help="HTTP mixing service")
+    sp.add_argument("--model", default="scalar2s", choices=_MODELS)
+    sp.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    sp.add_argument("--checkpoint", default="")
+    sp.add_argument("--transfer-dtype", default="float32",
+                    choices=["float32", "int16", "int12", "mulaw8"])
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8080,
+                    help="0 picks a free port; the bound one is printed")
+    sp.add_argument("--no-warmup", action="store_true",
+                    help="skip the start-up run of the device paths")
+    # no --seed, as in the JAX CLI: a random init draws from 0
+    sp.set_defaults(fn=cmd_serve, seed=0)
     return p
 
 

@@ -17,15 +17,13 @@ cache:
   songlist.
 * **Working precompute cache**: a single ``.npz`` per song with matching
   read/write paths.
-
-``compute_mean_loudness`` of the JAX package's dataset waits for the loudness
-meter (ROADMAP.md item 9).
+* **Mean-loudness scan**: ``compute_mean_loudness`` on the host BS.1770 meter.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -208,3 +206,21 @@ class MultitrackAudioDataset:
             return None
         with np.load(path) as z:
             return z["train"][chunk_i], z["gt"][chunk_i]
+
+    # --- statistics ----------------------------------------------------------
+
+    def compute_mean_loudness(self) -> Dict[str, float]:
+        """Mean integrated LUFS per track class over the songlist (reference
+        data/dataset.py:115-130; feeds the MeanLoudnessModel baseline), on
+        the host meter."""
+        from tpumix_torch.ops.loudness import integrated_loudness
+
+        sums = {t: 0.0 for t in TRACKLIST}
+        for song in self.songlist:
+            for track in TRACKLIST:
+                audio, sr = wavio.read(
+                    track_path(self._base_path, song, track, self._layout), always_2d=True
+                )
+                sums[track] += integrated_loudness(audio, sr)
+        n = len(self.songlist)
+        return {t: sums[t] / n for t in TRACKLIST}

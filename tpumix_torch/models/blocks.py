@@ -1,10 +1,12 @@
-"""Building blocks of the scalar gain models (tpumix/models/blocks.py:136-263).
+"""Building blocks of the gain models (tpumix/models/blocks.py:136-361).
 
 ConvBlock2d is Conv2d(VALID) -> BatchNorm(eps 1e-3, torch momentum 0.90 ==
 flax retained fraction 0.10) -> ReLU -> Dropout (train only), reference
 model_scalar_1s.py:151-190.  The trunk runs in ``torch.channels_last``, so the
 NHWC view the fused kernel takes is free.  In training mode every block is
 ``F.conv2d`` + BN + ReLU (+ dropout); the fused kernel is inference only.
+The ResNet family's ``BasicBlock`` and ``Bottleneck`` are ``F.conv2d`` + BN
+throughout, as in the JAX package (plain ``nn.Conv``, no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -139,3 +141,67 @@ class ScalarHead(nn.Module):
         if extra is not None:
             h = torch.cat([h, extra.to(h.dtype)], dim=-1)
         return self.fc(h)  # [B, 1]
+
+
+# ResNet blocks (tpumix/models/blocks.py:266-361): BatchNorm at torch's default
+# momentum 0.1 (flax retained fraction 0.9) and eps 1e-5, not the scalar
+# blocks' 0.90 and 1e-3
+RESNET_BN_MOMENTUM = 0.1
+RESNET_BN_EPS = 1e-5
+
+
+def _resnet_bn(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=RESNET_BN_EPS, momentum=RESNET_BN_MOMENTUM)
+
+
+class BasicBlock(nn.Module):
+    """CIFAR-style residual block (reference model_resnet.py:6-28):
+    conv3x3(stride) -> bn -> relu -> conv3x3 -> bn (+ 1x1 projection shortcut
+    when the shape changes) -> relu.  Paddings are torch's own k3 ``padding=1``
+    and k1 ``padding=0``, which the JAX package spells out as ((1, 1), (1, 1))
+    and ((0, 0), (0, 0)) to get the same window alignment."""
+
+    def __init__(self, in_features: int, features: int, strides: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_features, features, 3, stride=strides, padding=1, bias=False)
+        self.bn1 = _resnet_bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.bn2 = _resnet_bn(features)
+        self.shortcut_conv = self.shortcut_bn = None
+        if strides != 1 or in_features != features:
+            self.shortcut_conv = nn.Conv2d(in_features, features, 1, stride=strides, bias=False)
+            self.shortcut_bn = _resnet_bn(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        shortcut = x if self.shortcut_conv is None else self.shortcut_bn(self.shortcut_conv(x))
+        return torch.relu(out + shortcut)
+
+
+class Bottleneck(nn.Module):
+    """Bottleneck residual block (reference model_resnet.py:31-56): 1x1 ->
+    3x3(stride) -> 1x1 to ``expansion * features``.  Unused by ResNet18 and
+    ported for parity."""
+
+    def __init__(self, in_features: int, features: int, strides: int = 1,
+                 expansion: int = 4):
+        super().__init__()
+        wide = features * expansion
+        self.conv1 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.bn1 = _resnet_bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, stride=strides, padding=1, bias=False)
+        self.bn2 = _resnet_bn(features)
+        self.conv3 = nn.Conv2d(features, wide, 1, bias=False)
+        self.bn3 = _resnet_bn(wide)
+        self.shortcut_conv = self.shortcut_bn = None
+        if strides != 1 or in_features != wide:
+            self.shortcut_conv = nn.Conv2d(in_features, wide, 1, stride=strides, bias=False)
+            self.shortcut_bn = _resnet_bn(wide)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        shortcut = x if self.shortcut_conv is None else self.shortcut_bn(self.shortcut_conv(x))
+        return torch.relu(out + shortcut)

@@ -10,6 +10,11 @@ reads.
 Layout maps: conv kernels flax ``[kh, kw, in, out]`` -> torch ``[out, in, kh,
 kw]``; dense kernels ``[in, out]`` -> ``[out, in]``.  The head flatten order
 coincides between NCHW and NHWC because the head conv has one output channel.
+
+The scalar models go through the reference's torch names; ``GainResNet``
+keeps the flax module names (``stem_conv``, ``stem_bn``,
+``layer{s}_block{b}.{conv1,bn1,conv2,bn2,shortcut_conv,shortcut_bn}``,
+``head{i}.{conv,fc}``), so its map is name for name (``_named_from_jax``).
 """
 
 from __future__ import annotations
@@ -119,11 +124,63 @@ _PORT_TO_REFERENCE = (
 )
 
 
+def _named_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax variables -> the ``state_dict`` of a port module whose names are
+    the flax ones: ``kernel`` -> ``weight`` (conv and dense layouts), BN
+    ``scale`` / ``bias`` / ``mean`` / ``var`` -> ``weight`` / ``bias`` /
+    ``running_mean`` / ``running_var``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix, leaf_names):
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.", leaf_names)
+                continue
+            arr = np.array(_np(val), dtype=np.float32)
+            if key == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            sd[prefix + leaf_names[key]] = torch.from_numpy(np.ascontiguousarray(arr))
+            if key == "mean":
+                sd[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    walk(variables["params"], "", {"kernel": "weight", "scale": "weight", "bias": "bias"})
+    walk(variables["batch_stats"], "", {"mean": "running_mean", "var": "running_var"})
+    return sd
+
+
+def _named_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`_named_from_jax`."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, val in state_dict.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        arr = _np(val)
+        is_bn = f"{module}.running_mean" in state_dict
+        if leaf in ("running_mean", "running_var"):
+            tree, name = stats, {"running_mean": "mean", "running_var": "var"}[leaf]
+        elif leaf == "weight" and is_bn:
+            tree, name = params, "scale"
+        elif leaf == "weight":
+            tree, name = params, "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        else:
+            tree, name = params, leaf
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": params, "batch_stats": stats}
+
+
 def state_dict_to_jax(state_dict: Mapping[str, Any], num_blocks: int = 5,
                       num_heads: int = 4) -> Dict[str, Any]:
-    """The ``state_dict`` of the port's scalar model -> JAX ``{"params",
+    """The ``state_dict`` of the port's model -> JAX ``{"params",
     "batch_stats"}`` trees (numpy leaves); the inverse of
     :func:`state_dict_from_jax`."""
+    if "stem_conv.weight" in state_dict:  # GainResNet
+        return _named_to_jax(state_dict)
     ref = {}
     for key, val in state_dict.items():
         for pat, repl in _PORT_TO_REFERENCE:
@@ -136,7 +193,9 @@ def state_dict_to_jax(state_dict: Mapping[str, Any], num_blocks: int = 5,
 def state_dict_from_jax(variables: Mapping[str, Any], num_blocks: int = 5,
                         num_heads: int = 4) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` trees (numpy leaves) -> the
-    ``state_dict`` of the port's scalar model (``load_state_dict`` strict)."""
+    ``state_dict`` of the port's model (``load_state_dict`` strict)."""
+    if "stem_conv" in variables["params"]:  # GainResNet
+        return _named_from_jax(variables)
     ref = flax_scalar_to_torch(variables["params"], variables["batch_stats"],
                                num_blocks, num_heads)
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))

@@ -9,6 +9,7 @@ import torch
 import torch.nn as nn
 
 from tpumix_torch.config import ModelConfig
+from tpumix_torch.models.resnet import GainResNet
 from tpumix_torch.models.scalar import (
     MixingModelScalar1s,
     MixingModelScalar1sL,
@@ -36,7 +37,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
     return model
 
 
@@ -53,21 +55,22 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
     bins x the pinned frame count); it sizes the heads' dense layers.
     ``conv_impl="auto"`` resolves to ``"xla"`` (F.conv2d): the JAX package's
     TPU default, khgemm, is an XLA-level formulation that waits for ROADMAP.md
-    item 16."""
-    if cfg.name == "resnet18":
-        raise NotImplementedError(
-            "resnet18 is not ported yet (ROADMAP.md module item 10)"
-        )
-    if cfg.name not in _SCALAR:
-        raise ValueError(f"unknown model {cfg.name!r}; have {sorted(_SCALAR)}")
-    conv_impl = "xla" if cfg.conv_impl == "auto" else cfg.conv_impl
+    item 16.  ``resnet18`` is ``GainResNet``, whose convolutions are
+    ``F.conv2d`` whatever ``conv_impl`` says (as in the JAX package) and
+    whose BatchNorm keeps torch's default momentum."""
+    if cfg.name not in _SCALAR and cfg.name != "resnet18":
+        raise ValueError(f"unknown model {cfg.name!r}; have {sorted([*_SCALAR, 'resnet18'])}")
     if in_shape is None:
         in_shape = (cfg.frontend().num_bins, cfg.num_frames)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    model = _SCALAR[cfg.name](
-        in_shape=in_shape, num_stems=cfg.num_stems, bn_momentum=cfg.bn_momentum,
-        use_dropout=cfg.use_dropout, conv_impl=conv_impl, compute_dtype=dtype,
-    )
+    if cfg.name == "resnet18":
+        model = GainResNet(in_shape=in_shape, num_stems=cfg.num_stems, compute_dtype=dtype)
+    else:
+        conv_impl = "xla" if cfg.conv_impl == "auto" else cfg.conv_impl
+        model = _SCALAR[cfg.name](
+            in_shape=in_shape, num_stems=cfg.num_stems, bn_momentum=cfg.bn_momentum,
+            use_dropout=cfg.use_dropout, conv_impl=conv_impl, compute_dtype=dtype,
+        )
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_weights(model, generator).train(for_training)

@@ -11,12 +11,12 @@ at once, one nvcc process each.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,9 +90,10 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
         path = library_path(name)
         if os.path.exists(path):
             continue
+        nvcc = nvcc_path()  # raises before a temporary file exists
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, path)
     failures = []
@@ -110,12 +111,24 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     return {name: library_path(name) for name in names}
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, load, and declare the entry points' signatures."""
-    lib = ctypes.CDLL(build((name,))[name])
-    for fn_name, argtypes in (SIGNATURES[name], *EXTRA_ENTRIES.get(name, ())):
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """Build if needed, load, and declare the entry points' signatures.  Only
+    a miss takes the lock: a thread that calls during the first build (the
+    HTTP service runs each request on its own thread) waits for it instead
+    of running nvcc again, and a loaded library is read without the lock."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            lib = ctypes.CDLL(build((name,))[name])
+            for fn_name, argtypes in (SIGNATURES[name], *EXTRA_ENTRIES.get(name, ())):
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LOADED[name] = lib
+        return _LOADED[name]
