@@ -7,7 +7,10 @@ its plain PyTorch version at the shapes of the main paths, and drives those
 paths at the full width of ``scalar2s``: mixing (``SongMixer`` with
 ``scalar2s_synth.npz``, then ``python -m tpumix_torch mix``), training
 (``python -m tpumix_torch train`` / ``export-checkpoint`` on a seeded corpus,
-then ``Trainer`` with each fused frontend), the HTTP service (``scalar2s``
+from the host loader and from the device corpus, then ``Trainer`` with each
+fused frontend), synthetic training at the width of ``scalar2sL`` (the
+generator on the card against the CPU, ``synth-data``, ``train-synth`` with
+the gain objective, its export mixing), the HTTP service (``scalar2s``
 and ``resnet18``: ``/gains``, ``/mix``, ``/stream``; ``python -m tpumix_torch
 serve``) and evaluation (``evaluate`` with the device and the host loudness
 meter), and checks what comes out.  It
@@ -928,6 +931,10 @@ def _run_cli(args, timeout=900):
     return res.stdout, time.perf_counter() - t0
 
 
+def _epoch_lines(out: str) -> list:
+    return [line for line in out.splitlines() if line.startswith("Epoch ")]
+
+
 def phase_train(smi):
     """The training path at the full width of ``scalar2s`` (2 s chunks,
     ``[48,4,88200]`` waveforms in, ``[48,4,1025,173]`` features): the CLI
@@ -941,6 +948,7 @@ def phase_train(smi):
     from tpumix_torch.config import FrontendConfig, TrainConfig, preset
     from tpumix_torch.data import wavio
     from tpumix_torch.data.dataset import MultitrackAudioDataset
+    from tpumix_torch.data.device_corpus import DeviceCorpus, DeviceCorpusIterator
     from tpumix_torch.data.prefetch import BatchIterator
     from tpumix_torch.infer.mixer import _dequantize_on_device
     from tpumix_torch.models.registry import build_model
@@ -965,16 +973,16 @@ def phase_train(smi):
                 "--checkpoint-dir", ckpt, "--run-name", "smoke", "--transfer-dtype", "int16",
                 "--checkpoint-score", "val"]
         out, dt = _run_cli([*base, "--epochs", "2"])
-        epochs = [l for l in out.splitlines() if l.startswith("Epoch ")]
-        for line in epochs:
+        file_epochs = _epoch_lines(out)
+        for line in file_epochs:
             log(f"[train] cli: {line}")
         result = json.loads(out.strip().splitlines()[-1])
-        if len(epochs) != 2 or not np.isfinite(result["best_val_loss"]):
+        if len(file_epochs) != 2 or not np.isfinite(result["best_val_loss"]):
             raise AssertionError(f"train CLI: expected 2 finite epochs, got\n{out}")
         log(f"[train] python -m tpumix_torch train --model scalar2s --batch-size {B} --epochs 2 "
             f"--transfer-dtype int16: {dt:.1f} s, best epoch {result['best_epoch']}")
         out, dt = _run_cli([*base, "--epochs", "3", "--resume"])
-        epochs = [l for l in out.splitlines() if l.startswith("Epoch ")]
+        epochs = _epoch_lines(out)
         if len(epochs) != 1 or not epochs[0].startswith("Epoch 2:") or "restored epoch 1" not in out:
             raise AssertionError(f"train --resume did not continue at epoch 2:\n{out}")
         log(f"[train] cli --resume --epochs 3: {epochs[0]} ({dt:.1f} s)")
@@ -990,6 +998,24 @@ def phase_train(smi):
             raise AssertionError("mix with the exported checkpoint wrote a bad file")
         log(f"[train] cli mix --checkpoint smoke.npz: {audio.shape[0] / SR:.0f} s written, finite "
             f"({dt:.1f} s)")
+
+        # --- the same corpus and batch from the device: one upload, gathers ---
+        out_dc, dt = _run_cli(["train", "--data", data, "--model", "scalar2s", "--batch-size",
+                               str(B), "--checkpoint-dir", ckpt, "--run-name", "smoke_dc",
+                               "--checkpoint-score", "val", "--device-corpus", "--epochs", "2"])
+        dc_epochs = _epoch_lines(out_dc)
+        if len(dc_epochs) != 2 or not np.isfinite(
+                json.loads(out_dc.strip().splitlines()[-1])["best_val_loss"]):
+            raise AssertionError(f"train --device-corpus: expected 2 finite epochs, got\n{out_dc}")
+        for line in dc_epochs:
+            log(f"[train] cli --device-corpus: {line}")
+        log(f"[train] python -m tpumix_torch train --device-corpus --epochs 2: {dt:.1f} s")
+        for what, line in (("file loader (int16 wire)", file_epochs[-1]),
+                           ("device corpus", dc_epochs[-1])):
+            m = re.search(r"(\d+) train steps in ([\d.]+)s, ([\d.]+)s of it waiting", line)
+            steps, wall, wait = int(m.group(1)), float(m.group(2)), float(m.group(3))
+            log(f"[train] cli epoch 1, {what}: wall {1e3 * wall / steps:.1f} ms/step, host wait "
+                f"{1e3 * wait / steps:.1f} ms/step ({steps} steps, {smi})")
 
         # --- Trainer with each fused frontend, same seeds, same batches ---
         songs = sorted(os.listdir(data))
@@ -1046,6 +1072,18 @@ def phase_train(smi):
             f"{1e3 * st['wall_s'] / st['steps']:.1f} ms/step, host wait "
             f"{1e3 * st['host_wait_s'] / st['steps']:.1f} ms/step; peak device memory "
             f"{peak:.2f} GiB ({smi})")
+        t0 = time.perf_counter()
+        corpus = DeviceCorpus(data, songs[:5], 88200, layout="medleydb")
+        torch.cuda.synchronize()
+        upload = time.perf_counter() - t0
+        loader = _Take(DeviceCorpusIterator(corpus, B, seed=1), 4)
+        trainer.fit(loader, _Take(DeviceCorpusIterator(corpus, B, shuffle=False), 1), 3, 4)
+        st = trainer.last_epoch_stats
+        log(f"[train] steady epoch from the device corpus ({corpus.corpus.numel() * 2 / 1e6:.0f} "
+            f"MB int16, read and uploaded in {upload:.1f} s), {st['steps']} steps: wall "
+            f"{1e3 * st['wall_s'] / st['steps']:.1f} ms/step, host wait "
+            f"{1e3 * st['host_wait_s'] / st['steps']:.1f} ms/step ({smi})")
+        del corpus
 
         # --- device ms by stage of one step (CUDA events, median of 5) ---
         stems_np, mix_np = next(iter(BatchIterator(d_train, B, seed=2)))
@@ -1113,6 +1151,237 @@ def phase_train(smi):
         if max(rel) > 1e-3 or float(diffs.max()) > 4.1e-3 or frac > 0.10:
             raise AssertionError("a train step on cuda disagrees with the same step on the cpu")
     return counts
+
+
+SYNTH_KINDS = (None, "reverb", "comp", "limiter", "full")
+SYNTH_BATCH = 48  # train-synth's default batch
+
+
+def _in_process_cli(args):
+    """``python -m tpumix_torch <args>`` run in this process, so the kernels'
+    launch counters see it: ``(stdout, seconds)``."""
+    import contextlib
+    import io
+
+    from tpumix_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(args))
+    if rc != 0:
+        raise AssertionError(f"CLI {args[0]} returned {rc}:\n{buf.getvalue()}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _synth_generator(smi):
+    """The generator at full width (``[48, 4, 88200]`` windows of a 4-chunk
+    context, level shift on): the same CPU draws rendered on the card and on
+    the CPU, clean and under each bus; the card's own draws; one batch timed."""
+    import torch
+
+    from tpumix_torch.data.synthetic import synth_chunk_batch, synth_draws, synth_render
+
+    B, n, cm, shift = SYNTH_BATCH, 88200, 4, (-14.0, 2.0)
+    t0 = time.perf_counter()
+    draws = synth_draws(torch.Generator().manual_seed(0), B, n, cm, shift)
+    on_card = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in draws.items()}
+    log(f"[synth] draws on the CPU at B={B}, n={n}, context x{cm}, shift {shift}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    # Bound: both devices compute the time axis and every phase argument from
+    # bit-equal float32 operands (true divisions, synth_render), but the
+    # vocals' argument adds the vibrato, itself a sine that the two math
+    # libraries round a few ulp apart; the sum can then round to the
+    # neighbouring float32, one ulp of the largest argument, 2 pi 500 Hz x the
+    # context + 3, and the vocal stem moves by up to that times its amplitude
+    # (twice, for margin).  Every other difference (a sine's or exp's last
+    # bits, the moving averages' float32 cumulative sums) is far below it.
+    # The mix carries the vocal stem at its gain, and the reverb tail adds up
+    # to 0.35 * sum(0.6**k) of it.  Labels take the same float32 operations.
+    arg_ulp = float(np.spacing(np.float32(2 * np.pi * 500.0 * n * cm / SR + 3.0)))
+    for kind in SYNTH_KINDS:
+        got = [t.cpu() for t in synth_render(on_card, SR, return_gains=True, mix_bus_kind=kind)]
+        ref = synth_render(draws, SR, return_gains=True, mix_bus_kind=kind)
+        d = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        vocals = ref[0][:, 2].abs().amax(dim=1)  # [B] peak of each item's vocal stem
+        b_stems = 2.0 * arg_ulp * float(vocals.max())
+        b_mix = 1.53 * 2.0 * arg_ulp * float((10.0 ** (0.5 * ref[2][:, 2]) * vocals).max())
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        per_stem = (got[0] - ref[0]).abs().amax(dim=(0, 2)).tolist()
+        log(f"[synth] card vs cpu render, bus {kind or 'clean'}: max |d| stems {d[0]:.3e} "
+            f"(bass/drums/vocals/other " + "/".join(f"{v:.2e}" for v in per_stem)
+            + f"; bound {b_stems:.3e}), mix {d[1]:.3e} (bound {b_mix:.3e}), labels {d[2]:.3e} "
+            f"(bound 1e-6); mean |d| stems {float((got[0] - ref[0]).abs().mean()):.3e}, mix "
+            f"{float((got[1] - ref[1]).abs().mean()):.3e}; finite {finite}")
+        if not finite or d[0] > b_stems or d[1] > b_mix or d[2] > 1e-6:
+            raise AssertionError(f"the card's synthetic render disagrees with the CPU's ({kind})")
+    del on_card, draws
+
+    gen = torch.Generator(device="cuda")
+    for kind in SYNTH_KINDS:
+        stems, mix, g = synth_chunk_batch(gen.manual_seed(1), B, n, SR, return_gains=True,
+                                          context_mult=cm, level_shift_db=shift,
+                                          mix_bus_kind=kind)
+        if (stems.shape != (B, 4, n) or mix.shape != (B, n) or g.shape != (B, 4)
+                or stems.device.type != gen.device.type
+                or not all(bool(torch.isfinite(t).all()) for t in (stems, mix, g))):
+            raise AssertionError(f"bad synthetic batch on the card ({kind}): shapes "
+                                 f"{[tuple(t.shape) for t in (stems, mix, g)]} on {stems.device}")
+        if kind is None:
+            # the labels are exact on the clean family (tests/test_train.py:452)
+            recon = torch.einsum("bsn,bs->bn", stems, 10.0 ** (0.5 * g))
+            excess = float(((recon - mix).abs() - (1e-5 + 1e-4 * mix.abs())).max())
+            log(f"[synth] card draws: shapes and finiteness hold for every bus; clean family "
+                f"sum_s 10**(0.5 g_s) stem_s - mix: max |d| {float((recon - mix).abs().max()):.3e}"
+                f" (rtol 1e-4, atol 1e-5: excess {excess:.3e})")
+            if excess > 0:
+                raise AssertionError("the gain labels do not reconstruct the clean mix")
+    ms = time_ms(lambda: synth_chunk_batch(gen, B, n, SR, return_gains=True, context_mult=cm,
+                                           level_shift_db=shift), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[synth] one batch [{B},4,{n}] from a {cm * n}-sample context: {ms:.3f} ms "
+        f"(CUDA events, median of 5; {smi}); peak device memory so far {peak:.2f} GiB")
+
+
+def phase_synth(smi):
+    """The synthetic training path at the full width of ``scalar2sL``: the
+    generator (``_synth_generator``), then the commands — ``synth-data``,
+    ``train-synth --loss gain`` for 2 epochs and ``--resume`` for a third
+    (in this process, so K1's launch counter sees them), ``export-checkpoint``
+    and ``mix`` with the export, one ``--loss lstsq_tail --mix-bus full``
+    step — then the step's device time by stage, its wall time, and one
+    bfloat16 step.  Returns the K1 launches of the commands' training."""
+    import torch
+
+    from tpumix_torch.config import TrainConfig, preset
+    from tpumix_torch.data import wavio
+    from tpumix_torch.infer.mixer import _dequantize_on_device
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.ops.stft_dif import stft_features_dif
+    from tpumix_torch.train.state import _apply_update, make_frontend_fn
+    from tpumix_torch.train.trainer import SyntheticTrainer, _seeded_generator
+
+    t_phase = time.perf_counter()
+    _synth_generator(smi)
+    B = SYNTH_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ckpt = os.path.join(tmp, "synth"), os.path.join(tmp, "ckpt")
+        out, dt = _run_cli(["synth-data", "--out", data, "--n-train", "2", "--n-test", "1",
+                            "--duration", "20"])
+        with open(os.path.join(data, "test_songlist.txt")) as f:
+            test_song = f.read().split()[0]
+        log(f"[synth] cli synth-data: {out.strip().splitlines()[-1]} ({dt:.1f} s)")
+
+        base = ["train-synth", "--model", "scalar2sL", "--batch-size", str(B),
+                "--steps-per-epoch", "3", "--checkpoint-dir", ckpt, "--run-name", "synth"]
+        stft_features_dif.launches = 0
+        out, dt = _in_process_cli([*base, "--epochs", "2", "--loss", "gain"])
+        for line in _epoch_lines(out):
+            log(f"[synth] cli: {line}")
+        result = json.loads(out.strip().splitlines()[-1])
+        if len(_epoch_lines(out)) != 2 or not np.isfinite(result["best_val_loss"]):
+            raise AssertionError(f"train-synth: expected 2 finite epochs, got\n{out}")
+        log(f"[synth] python -m tpumix_torch train-synth --model scalar2sL --batch-size {B} "
+            f"--steps-per-epoch 3 --epochs 2 --loss gain: {dt:.1f} s, {json.dumps(result)}")
+        out, dt = _in_process_cli([*base, "--epochs", "3", "--loss", "gain", "--resume"])
+        resumed = _epoch_lines(out)
+        if (len(resumed) != 1 or not resumed[0].startswith("Epoch 2:")
+                or "restored epoch 1" not in out):
+            raise AssertionError(f"train-synth --resume did not continue at epoch 2:\n{out}")
+        log(f"[synth] cli --resume --epochs 3: {resumed[0]} ({dt:.1f} s)")
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is enabled on the train-synth path")
+        out, dt = _in_process_cli(["train-synth", "--model", "scalar2sL", "--batch-size", str(B),
+                                   "--steps-per-epoch", "1", "--epochs", "1", "--loss",
+                                   "lstsq_tail", "--mix-bus", "full", "--checkpoint-dir", ckpt,
+                                   "--run-name", "synth_lstsq_tail"])
+        line = _epoch_lines(out)
+        result_l = json.loads(out.strip().splitlines()[-1])
+        if len(line) != 1 or not np.isfinite(result_l["best_val_loss"]):
+            raise AssertionError(f"train-synth --loss lstsq_tail --mix-bus full:\n{out}")
+        launches = stft_features_dif.launches
+        # per step one K1 launch (the stems; "gain" and the lstsq family never
+        # take the mix's spectrogram), per validation batch one: 3 epochs x (3
+        # + 4) + (1 + 4)
+        log(f"[synth] cli --loss lstsq_tail --mix-bus full, 1 step: {line[0]} ({dt:.1f} s); "
+            f"TF32 off; launches stft_features_dif over the three runs {launches}")
+        if launches != 3 * (3 + 4) + (1 + 4):
+            raise AssertionError("the train-synth path did not launch K1 once per batch")
+
+        npz = os.path.join(tmp, "synth.npz")
+        out, dt = _run_cli(["export-checkpoint", "--checkpoint", result["checkpoint_dir"],
+                            "--out", npz])
+        log(f"[synth] cli export-checkpoint: {out.strip().splitlines()[-1]} ({dt:.1f} s)")
+        mixed = os.path.join(tmp, "mixed")
+        out, dt = _run_cli(["mix", "--data", os.path.join(data, "test"), "--layout", "musdb18",
+                            "--song", test_song, "--model", "scalar2sL", "--checkpoint", npz,
+                            "--out", mixed])
+        audio, sr = wavio.read(os.path.join(mixed, f"{test_song}_mixed.wav"), always_2d=True)
+        if sr != SR or audio.shape[0] != int(20.0 * SR) or not np.isfinite(audio).all():
+            raise AssertionError("mix with the train-synth export wrote a bad file")
+        log(f"[synth] cli mix --model scalar2sL --checkpoint synth.npz on {test_song}: "
+            f"{audio.shape[0] / SR:.0f} s written, finite ({dt:.1f} s)")
+
+    # --- wall per step and the step's device time by stage ---
+    cfg = dataclasses.replace(preset("scalar2sL"), bn_momentum=0.99, use_dropout=False)
+    frontend = cfg.frontend()
+    C = frontend.chunk_samples(cfg.chunk_length_s)
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(batch_size=B, checkpoint_dir=tmp, seed=0, loss="gain",
+                           log_every_steps=1000)
+        trainer = SyntheticTrainer(build_model(cfg, for_training=True), frontend, tcfg,
+                                   chunk_samples=C, run_name="steady", val_batches=1)
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(5, 7, 0, 2)
+        st = trainer.last_epoch_stats
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[synth] SyntheticTrainer scalar2sL, second epoch of {st['steps']} steps at "
+            f"[{B},4,{C}]: wall {1e3 * st['wall_s'] / st['steps']:.1f} ms/step, host wait "
+            f"{1e3 * st['host_wait_s'] / st['steps']:.1f} ms/step; peak device memory "
+            f"{peak:.2f} GiB ({smi})")
+        state = trainer.state
+        _features = make_frontend_fn(frontend)
+        names = ("generation", "frontend (K1 x1)", "forward", "backward", "optimizer")
+        rows = []
+        for k in range(6):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            with torch.no_grad():
+                stems, g_true = trainer._generate(_seeded_generator(11, k, trainer.device))
+                ev[1].record()
+                feats = _features(_dequantize_on_device(stems))
+                ev[2].record()
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = torch.mean(torch.square(state.model.gains(feats) - g_true))
+            ev[3].record()
+            loss.backward()
+            ev[4].record()
+            _apply_update(state)
+            ev[5].record()
+            torch.cuda.synchronize()
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+        med = np.median(np.array(rows[1:]), axis=0)
+        log(f"[synth] one train-synth step (gain) at [{B},4,{C}], device ms by stage (median "
+            f"of 5, {smi}): " + "; ".join(f"{n} {v:.3f}" for n, v in zip(names, med))
+            + f"; sum {med.sum():.3f}")
+        del trainer, state
+
+        # --- one bfloat16 step: finite, state float32 ---
+        bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        trainer = SyntheticTrainer(build_model(bcfg, for_training=True), frontend, tcfg,
+                                   chunk_samples=C, run_name="bf16", val_batches=1)
+        res = trainer.fit(1, 7, 0, 1)
+        dtypes = {t.dtype for t in trainer.model.parameters()}
+        dtypes |= {t.dtype for t in trainer.model.buffers() if t.is_floating_point()}
+        dtypes |= {m.dtype for s in trainer.state.optimizer.state.values() for m in s.values()
+                   if torch.is_tensor(m) and m.is_floating_point()}
+        log(f"[synth] --compute-dtype bfloat16 step: train loss {res.train_loss[0]:.4f}, val "
+            f"{res.val_loss[0]:.4f}; parameter, buffer and optimizer dtypes {sorted(map(str, dtypes))}")
+        if not np.isfinite(res.train_loss + res.val_loss).all() or dtypes != {torch.float32}:
+            raise AssertionError("the bfloat16 train-synth step is not finite with float32 state")
+    log(f"[synth] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"stft_features_dif": launches}
 
 
 def _http(addr, method, path, body=None, timeout=900):
@@ -1584,7 +1853,8 @@ def phase_eval(smi):
     log(f"[eval] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "cli", "train", "serve", "eval")
+PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "cli", "train", "synth", "serve",
+          "eval")
 
 
 def main(argv=None) -> int:
@@ -1677,6 +1947,9 @@ def main(argv=None) -> int:
         phase_cli()
     if "train" in phases:
         for kname, n in phase_train(smi).items():
+            launches[kname] = launches.get(kname, 0) + n
+    if "synth" in phases:
+        for kname, n in phase_synth(smi).items():
             launches[kname] = launches.get(kname, 0) + n
     if "serve" in phases:
         for kname, n in phase_serve(smi).items():

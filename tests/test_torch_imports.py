@@ -49,7 +49,8 @@ def test_import_loads_no_jax_module():
         "tpumix_torch.assets, tpumix_torch.train, tpumix_torch.data.dataset, "
         "tpumix_torch.data.prefetch, tpumix_torch.serve, tpumix_torch.infer.streaming, "
         "tpumix_torch.eval.evaluator, tpumix_torch.models.resnet, tpumix_torch.ops.loudness, "
-        "tpumix_torch.data.songlists\n"
+        "tpumix_torch.data.songlists, tpumix_torch.data.synthetic, "
+        "tpumix_torch.data.device_corpus\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpumix'))\n"
@@ -94,6 +95,34 @@ def test_cli_device_flag_defaults_to_cuda():
     assert serve.device == "cuda" and serve.model == "scalar2s" and serve.port == 8080
     evaluate = build_parser().parse_args(["evaluate", "--data", "x", "--mean-loudness", "m"])
     assert evaluate.device == "cuda" and not evaluate.device_meter
+
+
+def test_training_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """``SyntheticTrainer``, ``DeviceCorpus``, ``train-synth`` and ``train
+    --device-corpus`` take the card unless the CPU is asked for."""
+    from tpumix_torch.cli import build_parser
+    from tpumix_torch.config import FrontendConfig, TrainConfig
+    from tpumix_torch.data.device_corpus import DeviceCorpus
+    from tpumix_torch.train.trainer import SyntheticTrainer
+
+    # "cuda" names the current card, the device its tensors report, so a
+    # device batch compares equal to the trainer's device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    from tpumix_torch.utils.device import resolve_device
+
+    assert resolve_device(None) == resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    synth = build_parser().parse_args(["train-synth"])
+    assert synth.device == "cuda" and synth.model == "scalar2sL" and synth.loss == "gain"
+    corpus = build_parser().parse_args(["train", "--data", "x", "--device-corpus"])
+    assert corpus.device == "cuda" and corpus.device_corpus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticTrainer(torch.nn.Identity(), FrontendConfig(),
+                         TrainConfig(checkpoint_dir=str(tmp_path)), chunk_samples=88200)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceCorpus(str(tmp_path), ["song"], 88200)
 
 
 def test_smoke_script_fails_outside_checkout(tmp_path):

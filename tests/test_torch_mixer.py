@@ -227,3 +227,46 @@ def test_catalog_writes_mixed_wavs(mixer, tmp_path, song, gains, monkeypatch):
     assert sr == SR and audio.shape == (stems.shape[1], 2) and np.isfinite(audio).all()
     assert np.abs(audio).max() == pytest.approx(1.0, abs=1e-6)
     assert (out / "SongB_sum.wav").exists() and len(handles) == 2
+
+
+def test_mix_song_smooth_meets_the_reference_pipeline_directly():
+    """The North star's contract held directly, not through the JAX
+    ``SongMixer``: the port's CPU ``mix_song_smooth`` against
+    ``reference_mix_song_smooth`` (the reference's chunk-by-chunk torch
+    pipeline) on tests/test_infer.py:60-82's fixture — scalar1s from a flax
+    init, a 14 s broadband song — with that test's bounds: dB-scalar gain MAE
+    <= 1e-3 and relative amplitude <= 2e-3 per stem."""
+    import jax
+
+    from tpumix.models import MixingModelScalar1s as JaxScalar1s
+    from tpumix.utils.reference_pipeline import build_torch_twin, reference_mix_song_smooth
+
+    variables = JaxScalar1s().init(jax.random.key(0), np.zeros((1, 4, 1025, 87), np.float32),
+                                   train=False)
+    rng = np.random.default_rng(42)
+    n = 14 * SR
+    t = np.arange(n) / SR
+
+    def shaped_noise(scale, smooth):
+        x = rng.standard_normal(n)
+        return scale * np.convolve(x, np.ones(smooth) / smooth, mode="same")
+
+    song = {
+        "bass": 0.4 * np.sin(2 * np.pi * 80 * t) + shaped_noise(0.1, 64),
+        "drums": shaped_noise(0.3, 2) * (np.sin(2 * np.pi * 3 * t) > 0.3),
+        "vocals": 0.3 * np.sin(2 * np.pi * 300 * t + np.sin(2 * np.pi * 2 * t))
+        + shaped_noise(0.1, 16),
+        "other": shaped_noise(0.2, 8),
+    }
+    song = {k: v.astype(np.float32) for k, v in song.items()}
+    model = build_model(preset("scalar1s"))
+    model.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, variables)))
+    _, raw, _ = SongMixer(model, preset("scalar1s"), device="cpu").mix_song_smooth(song)
+    twin = build_torch_twin(variables["params"], variables["batch_stats"])
+    _, raw_ref, _ = reference_mix_song_smooth(twin, song, chunk_length=1.0, sr=SR, hop=512)
+    for s in STEMS:
+        a, b = np.asarray(raw[s]), np.asarray(raw_ref[s])
+        assert a.shape == b.shape == (13,)
+        mae = np.mean(np.abs(2 * np.log10(a) - 2 * np.log10(b)))
+        assert mae <= 1e-3, (s, mae)
+        assert np.mean(np.abs(a - b) / np.abs(b)) <= 2e-3, s

@@ -147,13 +147,15 @@ def test_train_parser_mirrors_tpumix_flag_for_flag():
                    and command in a.choices).choices[command]
         return {a.dest: a.default for a in sub._actions if a.dest != "help"}
 
-    for command, missing in (("train", {"mesh", "device_corpus"}), ("export-checkpoint", set())):
+    for command, missing in (("train", {"mesh"}), ("train-synth", {"mesh"}),
+                             ("export-checkpoint", set()), ("synth-data", set())):
         ours, theirs = flags(cli.build_parser(), command), flags(jax_build_parser(), command)
-        extra = {"device"} if command == "train" else set()
+        extra = {"device"} if command.startswith("train") else set()
         assert set(theirs) - set(ours) == missing and set(ours) - set(theirs) == extra
         for dest in set(ours) & set(theirs):
             assert ours[dest] == theirs[dest], dest
     assert flags(cli.build_parser(), "train")["device"] == "cuda"
+    assert flags(cli.build_parser(), "train-synth")["device"] == "cuda"
 
 
 def test_dataset_is_the_jax_packages(corpus):

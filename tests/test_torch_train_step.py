@@ -73,21 +73,32 @@ def data():
     return _batches()
 
 
-def _pair(seed=0):
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test that asks for it: the suite runs
+    several test processes side by side, and torch's default of a thread per
+    core in each makes CPU ops wait on one another many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _pair(seed=0, name="scalar1s"):
     """A flax model with its initial variables and the port's model holding
     the same values, both in training mode without dropout."""
-    jcfg = dataclasses.replace(jax_preset("scalar1s"), use_dropout=False)
+    jcfg = dataclasses.replace(jax_preset(name), use_dropout=False)
     jmodel = jax_build_model(jcfg, for_training=True)
     tx = jax_state.adam_with_l2(LR, WD)
     jst = jax_state.create_train_state(jmodel, jax.random.key(seed), (1, 4, *FT), tx)
-    model = build_model(dataclasses.replace(preset("scalar1s"), use_dropout=False),
+    model = build_model(dataclasses.replace(preset(name), use_dropout=False),
                         in_shape=FT, for_training=True)
     variables = jax.tree.map(np.asarray, {"params": jst.params, "batch_stats": jst.batch_stats})
     model.load_state_dict(state_dict_from_jax(variables))
     return jmodel, tx, jst, port_state.create_train_state(model, LR, WD)
 
 
-def _compare_states(jst, state, steps):
+def _compare_states(jst, state, steps, within_after_three=0.80):
     ref = state_dict_from_jax(jax.tree.map(np.asarray, {"params": jst.params,
                                                         "batch_stats": jst.batch_stats}))
     got = state.model.state_dict()
@@ -108,7 +119,7 @@ def _compare_states(jst, state, steps):
     if steps == 1:
         assert float((diffs <= 2e-5).float().mean()) >= 0.99
     else:
-        assert float((diffs <= 0.1 * LR * steps).float().mean()) >= 0.80
+        assert float((diffs <= 0.1 * LR * steps).float().mean()) >= within_after_three
 
 
 LOSSES = list(port_state.SELF_SUPERVISED_LOSSES)
@@ -130,6 +141,39 @@ def test_train_step_matches_tpumix_after_one_and_three_steps(data, loss):
         if i in (1, 3):
             _compare_states(jst, state, steps=i)
     assert state.model.training
+
+
+@pytest.mark.parametrize("loss", ["reference", "lstsq"])
+def test_resnet18_train_step_matches_tpumix_after_one_and_three_steps(data, loss,
+                                                                     one_torch_thread):
+    """``GainResNet`` under the scalar test's setup.  After one step the
+    scalar bounds hold, but for the mean gain, which gets
+    tests/test_torch_resnet.py's bound on this model's gains from equal
+    parameters, 1e-4 (thirteen residual blocks of float32 sums in another
+    order: 1.3e-5 here at one thread).  Its later steps drift further, and the drift is the
+    Adam sign drift, not a fault (tests/measure_port_parity.py, ``drift``):
+    the JAX package run against itself from a start whose parameters are
+    perturbed by 1e-5 relative (its first step then agrees with the
+    unperturbed run as the port's does: 99.6-99.8% of parameters within
+    2e-5, the port 99.9%) keeps only 61-71% of the parameters within 3e-4
+    after three steps (two perturbation draws, both losses; 78-85% at 1e-6),
+    its loss moves up to 4.0% and its mean gain up to 0.076.  The port sits
+    inside that: 73.4% / 80.4%, 3.1% / 0.9%, 0.010 / 0.004 (``reference`` /
+    ``lstsq``).  So from the second step on: 60% of the parameters within
+    3e-4, the loss to 5e-2 relative and the mean gain to 0.1, the JAX
+    package's own spread under that perturbation with its first digit kept."""
+    jmodel, tx, jst, state = _pair(name="resnet18")
+    jstep = jax.jit(jax_state.make_train_step(jmodel, JaxFrontendConfig(**KW), tx, loss=loss))
+    step = port_state.make_train_step(state, FrontendConfig(**KW), loss=loss)
+    for i, (stems, mix) in enumerate((data[0], data[1], data[0]), start=1):
+        jst, jm = jstep(jst, jnp.asarray(stems), jnp.asarray(mix), jax.random.key(1))
+        m = step(torch.from_numpy(stems), torch.from_numpy(mix))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=2e-4 if i == 1 else 5e-2)
+        np.testing.assert_allclose(float(m["mean_gain"]), float(jm["mean_gain"]), rtol=0,
+                                   atol=1e-4 if i == 1 else 0.1)
+        if i in (1, 3):
+            _compare_states(jst, state, steps=i, within_after_three=0.60)
 
 
 def test_gain_step_matches_tpumix(data):

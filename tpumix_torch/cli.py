@@ -1,6 +1,8 @@
 """tpumix_torch command-line interface.
 
     python -m tpumix_torch train              train a gain model
+    python -m tpumix_torch train-synth        train on the synthetic task, generated on the device
+    python -m tpumix_torch synth-data         write a synthetic corpus (MUSDB18 layout)
     python -m tpumix_torch export-checkpoint  run checkpoint -> compact inference .npz
     python -m tpumix_torch mix                mix one song (or a catalogue) with a checkpoint
     python -m tpumix_torch evaluate           LoudnessEvaluator sweep -> stats.xlsx/csv
@@ -9,7 +11,7 @@
 
 The flags are those of the same ``python -m tpumix`` commands plus ``--device``
 (``cuda`` by default; ``cpu`` runs the kernels' plain versions).  ``train``
-lacks ``--mesh`` and ``--device-corpus`` (ROADMAP.md items 15 and 14).
+and ``train-synth`` lack ``--mesh`` (ROADMAP.md item 15).
 """
 
 from __future__ import annotations
@@ -113,19 +115,20 @@ def _warn_if_lstsq_degenerate(val_loader) -> None:
     convention — ``mixture.wav`` is the PLAIN SUM of the stem files — the
     closed-form lstsq gain targets are identically zero (unity gains), so
     lstsq-family self-supervision learns the constant predictor.  Probes one
-    UNAUGMENTED validation batch: engineer-scaled corpora measure mean
-    |target| ~1e-3 scalar units; real mixing gains measure ~0.2+."""
-    import numpy as np
+    UNAUGMENTED validation batch, host (float32) or device (int16 from a
+    ``DeviceCorpus``), dequantised where it lies: engineer-scaled corpora
+    measure mean |target| ~1e-3 scalar units; real mixing gains ~0.2+."""
     import torch
 
+    from tpumix_torch.infer.mixer import _dequantize_on_device
     from tpumix_torch.train.state import _lstsq_gain_targets
 
     try:
         stems0, mix0 = next(iter(val_loader))
     except StopIteration:
         return
-    g0 = _lstsq_gain_targets(torch.as_tensor(np.asarray(stems0), dtype=torch.float32),
-                             torch.as_tensor(np.asarray(mix0), dtype=torch.float32))
+    g0 = _lstsq_gain_targets(_dequantize_on_device(torch.as_tensor(stems0)),
+                             _dequantize_on_device(torch.as_tensor(mix0)))
     mean_abs = float(g0.abs().mean())
     if mean_abs < 0.02:
         print(
@@ -134,8 +137,8 @@ def _warn_if_lstsq_degenerate(val_loader) -> None:
             "units) — mixture.wav looks like the plain sum of the stem files, "
             "which makes lstsq-family self-supervision DEGENERATE (the model "
             "learns the constant unity-gain predictor).  Supervise raw "
-            "multitrack stems against the engineer's mix instead, or use "
-            "--loss reference.",
+            "session stems against the engineer's mix instead "
+            "(synth-data --train-raw layout), or use --loss gain/reference.",
             flush=True,
         )
 
@@ -178,20 +181,50 @@ def cmd_train(args) -> int:
         print("[train] WARNING: validation split is empty at this "
               "--val-fraction; validating on the training songs")
         val_songs = train_songs
-    d_train = make_ds(train_songs, args.augment)
-    d_val = make_ds(val_songs, False)
+
+    if args.device_corpus:
+        # the corpus goes onto the device once as int16 and every batch is a
+        # gather there (data/device_corpus.py).  Augmentation moves into the
+        # step (random gains from the step's device generator, the same
+        # all-five-tracks semantics); there is no wire to encode
+        from tpumix_torch.data.device_corpus import DeviceCorpus, DeviceCorpusIterator
+
+        if args.transfer_dtype != "float32":
+            print(f"[train] WARNING: --transfer-dtype {args.transfer_dtype} is "
+                  "ignored with --device-corpus (the corpus is stored int16 on "
+                  "device and the step dequantises by dtype; there is no wire)")
+        chunk_samples = model_cfg.frontend().chunk_samples(model_cfg.chunk_length_s)
+        c_train = DeviceCorpus(args.data, train_songs, chunk_samples, args.layout,
+                               device=args.device)
+        # the empty-split fallback above validates on the training songs:
+        # upload that corpus once
+        c_val = (c_train if val_songs == train_songs else
+                 DeviceCorpus(args.data, val_songs, chunk_samples, args.layout,
+                              device=args.device))
+        train_loader = DeviceCorpusIterator(c_train, args.batch_size, seed=args.seed)
+        val_loader = DeviceCorpusIterator(c_val, args.batch_size, shuffle=False,
+                                          seed=args.seed)
+        train_len = c_train.num_chunks
+        step_augment, wire_dtype = args.augment, "float32"
+    else:
+        d_train = make_ds(train_songs, args.augment)
+        train_loader = BatchIterator(d_train, args.batch_size, seed=args.seed)
+        val_loader = BatchIterator(make_ds(val_songs, False), args.batch_size, shuffle=False,
+                                   seed=args.seed)
+        train_len = len(d_train)
+        step_augment, wire_dtype = False, args.transfer_dtype
 
     # cosine needs the total step count up front; the loader's epoch length
     # is deterministic (drop_last static batches over the train chunk count)
-    steps_per_epoch = max(1, len(d_train) // args.batch_size)
+    steps_per_epoch = max(1, train_len // args.batch_size)
     cfg = TrainConfig(
         batch_size=args.batch_size, learning_rate=args.lr, num_epochs=args.epochs,
-        checkpoint_dir=args.checkpoint_dir, seed=args.seed, augment=False,
+        checkpoint_dir=args.checkpoint_dir, seed=args.seed, augment=step_augment,
         checkpoint_score=args.checkpoint_score,
         augment_mix=not args.augment_stems_only,
         early_stopping_patience=resolve_patience(args.patience, args.loss),
         keep_checkpoints=args.keep_checkpoints, loss=args.loss,
-        transfer_dtype=args.transfer_dtype,
+        transfer_dtype=wire_dtype,
         lr_schedule=args.lr_schedule,
         lr_total_steps=(args.epochs * steps_per_epoch
                         if args.lr_schedule == "cosine" else None),
@@ -203,8 +236,6 @@ def cmd_train(args) -> int:
                         for_training=True)
     trainer = Trainer(model, model_cfg.frontend(), cfg, run_name=args.run_name,
                       device=args.device)
-    train_loader = BatchIterator(d_train, args.batch_size, seed=args.seed)
-    val_loader = BatchIterator(d_val, args.batch_size, shuffle=False, seed=args.seed)
     if args.loss.startswith("lstsq"):
         _warn_if_lstsq_degenerate(val_loader)
     start = trainer.resume() if args.resume else 0
@@ -213,6 +244,64 @@ def cmd_train(args) -> int:
         "best_epoch": result.best_epoch, "best_val_loss": result.best_val_loss,
         "stopped_early": result.stopped_early, "checkpoint_dir": trainer.ckpt_dir,
     }))
+    return 0
+
+
+def cmd_train_synth(args) -> int:
+    """Train on the synthetic mixing task, each batch generated on the device
+    inside the step (data/synthetic.py): the loop reads no file."""
+    import torch
+
+    from tpumix_torch.config import TrainConfig, preset
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.train.trainer import SyntheticTrainer, resolve_patience
+
+    model_cfg = dataclasses.replace(preset(args.model), compute_dtype=args.compute_dtype,
+                                    bn_momentum=args.bn_momentum, use_dropout=args.dropout)
+    cfg = TrainConfig(
+        batch_size=args.batch_size, learning_rate=args.lr, num_epochs=args.epochs,
+        checkpoint_dir=args.checkpoint_dir, seed=args.seed, augment=args.augment,
+        checkpoint_score=args.checkpoint_score,
+        augment_mix=not args.augment_stems_only,
+        early_stopping_patience=resolve_patience(args.patience, args.loss),
+        keep_checkpoints=args.keep_checkpoints, loss=args.loss,
+        lr_schedule=args.lr_schedule,
+        lr_total_steps=args.epochs * args.steps_per_epoch,
+    )
+    # parameter init and dropout masks from --seed, as in `train`
+    torch.manual_seed(args.seed)
+    model = build_model(model_cfg, generator=torch.Generator().manual_seed(args.seed),
+                        for_training=True)
+    frontend = model_cfg.frontend()
+    trainer = SyntheticTrainer(
+        model, frontend, cfg, chunk_samples=frontend.chunk_samples(model_cfg.chunk_length_s),
+        run_name=args.run_name, device=args.device, context_mult=args.context_mult,
+        level_shift_db=tuple(args.level_shift_db), mix_bus_kind=(args.mix_bus or None),
+    )
+    start = trainer.resume() if args.resume else 0
+    # validation batches from seed + 7 (tpumix: key(seed + 7))
+    result = trainer.fit(args.steps_per_epoch, args.seed + 7, start, args.epochs)
+    print(json.dumps({
+        "best_epoch": result.best_epoch, "best_val_loss": result.best_val_loss,
+        "stopped_early": result.stopped_early, "checkpoint_dir": trainer.ckpt_dir,
+    }))
+    return 0
+
+
+def cmd_synth_data(args) -> int:
+    """Write a synthetic evaluation corpus (MUSDB18 layout) and its songlist
+    files."""
+    from tpumix_torch.data.synthetic import write_synth_dataset
+
+    os.makedirs(args.out, exist_ok=True)
+    lists = write_synth_dataset(
+        args.out, n_train=args.n_train, n_test=args.n_test, duration_s=args.duration,
+        seed=args.seed, train_raw=args.train_raw, bus=(args.bus or None),
+    )
+    for split, songs in lists.items():
+        with open(os.path.join(args.out, f"{split}_songlist.txt"), "w") as f:
+            f.write("\n".join(songs) + "\n")
+    print(json.dumps({"root": args.out, **{k: len(v) for k, v in lists.items()}}))
     return 0
 
 
@@ -355,7 +444,85 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint in the run dir (requires "
                          "--run-name)")
+    sp.add_argument("--device-corpus", action="store_true",
+                    help="upload the whole corpus to the device once (int16) and assemble "
+                         "batches there: per-step host traffic is a [B] offset vector.  For "
+                         "corpora that fit the card next to the model; augmentation runs in "
+                         "the step (data/device_corpus.py)")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("train-synth", help="train on the synthetic task, generated on the "
+                                            "device")
+    sp.add_argument("--model", default="scalar2sL", choices=_MODELS)
+    sp.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="trunk and heads dtype; parameters, optimizer state and BN "
+                         "statistics stay float32")
+    sp.add_argument("--bn-momentum", type=float, default=0.99,
+                    help="BN retained fraction (0.10 = reference torch parity; 0.99 default "
+                         "here for stable eval-mode running stats on short synthetic runs)")
+    sp.add_argument("--dropout", action="store_true",
+                    help="enable the reference's dropout (default OFF here: nothing to "
+                         "regularise on an infinite synthetic stream, and it miscalibrates "
+                         "BN running stats)")
+    sp.add_argument("--context-mult", type=int, default=4,
+                    help="generator context length in chunks; levels/labels are "
+                         "context-global, the model sees one random window")
+    sp.add_argument("--level-shift-db", type=float, nargs=2, default=(-14.0, 2.0),
+                    metavar=("LO", "HI"),
+                    help="shared global level shift range in dB with shift-compensated "
+                         "labels (real corpora arrive at arbitrary absolute levels)")
+    sp.add_argument("--mix-bus", default="", choices=["", "reverb", "comp", "limiter", "full"],
+                    help="non-ideal mix-bus processing on the generator's reference mix "
+                         "(reverb tail / soft-knee compressor / tanh limiter / all three); "
+                         "gain labels stay clean")
+    sp.add_argument("--lr-schedule", default="cosine", choices=["constant", "cosine"],
+                    help="cosine decays to 0.01x over epochs*steps (default here; "
+                         "'constant' = reference parity)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--epochs", type=int, default=20,
+                    help="TOTAL epochs for the run; a --resume continues to this total, "
+                         "it does not add this many more")
+    sp.add_argument("--steps-per-epoch", type=int, default=50)
+    sp.add_argument("--batch-size", type=int, default=48)
+    sp.add_argument("--lr", type=float, default=1e-3)
+    sp.add_argument("--patience", type=int, default=None,
+                    help="early-stopping patience; default is per-loss (lstsq: 30, "
+                         "others: 10)")
+    sp.add_argument("--keep-checkpoints", type=int, default=None)
+    sp.add_argument("--checkpoint-score", default="val", choices=["train", "val"],
+                    help="keep-best-k ranking: 'train' = ignite parity (-train_mse); 'val' "
+                         "keeps the best VALIDATION epochs (the artifact to export)")
+    sp.add_argument("--checkpoint-dir", default="./checkpoints")
+    sp.add_argument("--run-name", default=None)
+    sp.add_argument("--augment", action="store_true")
+    sp.add_argument("--augment-stems-only", action="store_true",
+                    help="with --augment: re-gain only the stems, keep the supervision mix "
+                         "clean")
+    sp.add_argument("--loss", default="gain",
+                    choices=["reference", "roundtrip", "coherent", "lstsq", "lstsq_tail",
+                             "lstsq_tail_cm", "gain"],
+                    help="gain (default): MSE against the generator's true gain labels, the "
+                         "only per-stem-identifiable objective on this family; the others "
+                         "are the label-free objectives of `train`")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint of this run")
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sp.set_defaults(fn=cmd_train_synth)
+
+    sp = sub.add_parser("synth-data", help="write a synthetic eval corpus")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--n-train", type=int, default=16)
+    sp.add_argument("--n-test", type=int, default=8)
+    sp.add_argument("--duration", type=float, default=30.0)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--train-raw", action="store_true",
+                    help="write the train split in the reference's supervision layout: raw "
+                         "session stems + the engineer's mix as mixture.wav (what `train` "
+                         "learns gains from)")
+    sp.add_argument("--bus", default="", choices=["", "reverb", "comp", "limiter", "full"],
+                    help="non-ideal mix-bus processing applied to every engineer mix "
+                         "(data/synthetic.py mix_bus)")
+    sp.set_defaults(fn=cmd_synth_data)
 
     sp = sub.add_parser("export-checkpoint",
                         help="run checkpoint -> compact inference .npz")

@@ -59,16 +59,18 @@ class GainResNet(nn.Module):
             setattr(self, f"head{i}", ScalarHead(cin, h * w))
 
     def gains(self, x: torch.Tensor) -> torch.Tensor:
-        """``x [B, S, F, T]`` -> ``gains [B, S]`` float32 (no spectral mix)."""
+        """``x [B, S, F, T]`` -> ``gains [B, S]`` float32 (no spectral mix);
+        under a bfloat16 ``compute_dtype`` the heads run in bfloat16 too, as
+        in the JAX package, and the gains are cast to float32 at the end."""
         h = x.to(torch.float32).contiguous(memory_format=torch.channels_last)
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
                             enabled=self.compute_dtype != torch.float32):
             h = torch.relu(self.stem_bn(self.stem_conv(h)))
             for name in self.blocks:
                 h = getattr(self, name)(h)
-        h = h.to(torch.float32)
-        return torch.cat([getattr(self, f"head{i}")(h) for i in range(1, self.num_stems + 1)],
-                         dim=-1)
+            gains = torch.cat([getattr(self, f"head{i}")(h)
+                               for i in range(1, self.num_stems + 1)], dim=-1)
+        return gains.to(torch.float32)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         gains = self.gains(x)

@@ -64,18 +64,26 @@ class _ScalarModelBase(nn.Module):
         self.num_stems = num_stems
 
     def gains(self, x: torch.Tensor) -> torch.Tensor:
-        """``x [B, S, F, T]`` -> ``gains [B, S]`` float32 (no spectral mix)."""
+        """``x [B, S, F, T]`` -> ``gains [B, S]`` float32 (no spectral mix).
+
+        Under a bfloat16 ``compute_dtype`` the trunk, the heads and the level
+        features run in bfloat16, as in the JAX package (its heads take the
+        model's dtype and the levels are cast to it); the gains are cast to
+        float32 at the end.  Parameters and BN statistics stay float32."""
         h = x.to(torch.float32).contiguous(memory_format=torch.channels_last)
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
                             enabled=self.compute_dtype != torch.float32):
             for i in range(1, 6):
                 h = getattr(self, f"conv_b{i}")(h)
-        h = h.to(torch.float32)
-        levels = x.to(torch.float32).mean(dim=(2, 3)) * (1.0 / 20.0) if self.level_features else None
-        return torch.cat(
-            [getattr(self, f"head{i}")(h, extra=levels) for i in range(1, self.num_stems + 1)],
-            dim=-1,
-        )
+            levels = None
+            if self.level_features:
+                # per-stem mean dB, scaled to O(1), in the trunk's dtype
+                levels = (x.to(torch.float32).mean(dim=(2, 3)) * (1.0 / 20.0)).to(h.dtype)
+            gains = torch.cat(
+                [getattr(self, f"head{i}")(h, extra=levels) for i in range(1, self.num_stems + 1)],
+                dim=-1,
+            )
+        return gains.to(torch.float32)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """:param x: ``[B, num_stems, F, T]`` stacked dB spectrograms.

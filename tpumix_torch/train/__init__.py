@@ -6,4 +6,4 @@ from tpumix_torch.train.state import (  # noqa: F401
     make_feature_train_step,
     make_train_step,
 )
-from tpumix_torch.train.trainer import Trainer, TrainResult  # noqa: F401
+from tpumix_torch.train.trainer import SyntheticTrainer, Trainer, TrainResult  # noqa: F401

@@ -10,11 +10,13 @@ Parity targets:
 * run naming ``{datetime}_training_{model}`` (cell 2).
 
 One waveform-in train step (tpumix_torch/train/state.py) on the card, fed by a
-background host->device prefetcher.  A checkpoint is the directory
-``epoch_NNNN`` holding one ``torch.save`` file of model, optimizer and update
-count; it is written under a temporary name and renamed into place, so a kill
-mid-save leaves only something ``resume`` recognises and sweeps.
-``SyntheticTrainer`` waits for the synthetic data engine (ROADMAP.md item 12).
+background host->device prefetcher, or straight from a loader whose batches
+are already on the card (``DeviceCorpusIterator``).  ``SyntheticTrainer``
+generates each batch inside the step (tpumix_torch/data/synthetic.py) and
+reads no file.  A checkpoint is the directory ``epoch_NNNN`` holding one
+``torch.save`` file of model, optimizer and update count; it is written under
+a temporary name and renamed into place, so a kill mid-save leaves only
+something ``resume`` recognises and sweeps.
 """
 
 from __future__ import annotations
@@ -22,24 +24,29 @@ from __future__ import annotations
 import csv
 import dataclasses
 import datetime
+import itertools
 import json
 import os
 import re
 import shutil
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpumix_torch.config import FrontendConfig, TrainConfig
 from tpumix_torch.data.prefetch import prefetch_to_device
+from tpumix_torch.data.synthetic import synth_chunk_batch
 from tpumix_torch.infer.mixer import _mulaw_lut
 from tpumix_torch.train.state import (
+    _check_loss,
     cosine_decay_schedule,
     create_train_state,
     make_eval_step,
+    make_gain_eval_step,
+    make_gain_train_step,
     make_train_step,
 )
 from tpumix_torch.utils.device import disable_tf32, resolve_device
@@ -80,6 +87,10 @@ class Trainer:
         the frontends' plain versions.
     """
 
+    # label-supervised loss="gain" needs generator labels; only
+    # SyntheticTrainer, which builds its own steps, supports it
+    _supports_gain_loss = False
+
     def __init__(self, model: torch.nn.Module, frontend: FrontendConfig, config: TrainConfig,
                  run_name: Optional[str] = None, device=None):
         self.device = resolve_device(device)
@@ -114,13 +125,18 @@ class Trainer:
                 stacklevel=2,
             )
 
-        # loss="gain" raises here with the guidance message: it needs
-        # generator labels, which no waveform-pair loader carries
-        self._train_step = make_train_step(
-            self.state, frontend, augment=config.augment,
-            augment_mix=config.augment_mix, loss=config.loss,
-        )
-        self._eval_step = make_eval_step(self.state, frontend, loss=config.loss)
+        if config.loss == "gain":
+            if not self._supports_gain_loss:
+                _check_loss(config.loss)  # raises with the guidance message
+            # SyntheticTrainer installs the gain-supervised steps; the
+            # waveform-pair steps have no labels to train on
+            self._train_step = self._eval_step = None
+        else:
+            self._train_step = make_train_step(
+                self.state, frontend, augment=config.augment,
+                augment_mix=config.augment_mix, loss=config.loss,
+            )
+            self._eval_step = make_eval_step(self.state, frontend, loss=config.loss)
         # augmentation's random stream, on the device (tpumix: key(seed + 1))
         self._generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
 
@@ -225,13 +241,27 @@ class Trainer:
             return lambda batch: tuple(lut[_to_pcm16(b).astype(np.int32) + 32768] for b in batch)
         raise ValueError(f"unknown transfer_dtype {dtype!r}")
 
+    def _batches(self, loader):
+        """The loader's batches as tensors on the trainer's device: a batch
+        that is already there goes straight to the step (no host transform,
+        no second copy; the step dequantises int16 by dtype); host batches go
+        through the wire transform and the background prefetcher."""
+        it = iter(loader)
+        first = next(it, None)
+        if first is None:
+            return iter(())
+        it = itertools.chain([first], it)
+        if all(isinstance(t, torch.Tensor) and t.device == self.device for t in first):
+            return it
+        return prefetch_to_device(it, size=2, device=self.device,
+                                  transform=self._wire_transform())
+
     def _run_train_epoch(self, loader) -> float:
         losses = []  # device scalars; forced once at epoch end so steps
         # pipeline (a per-step host sync would serialise transfers + compute)
         tic = time.perf_counter()
-        waited = 0.0
-        it = prefetch_to_device(iter(loader), size=2, device=self.device,
-                                transform=self._wire_transform())
+        it = self._batches(loader)
+        waited = time.perf_counter() - tic  # the first batch, read to see where it lies
         i = 0
         while True:
             t0 = time.perf_counter()
@@ -335,3 +365,91 @@ class Trainer:
         fig.savefig(path, bbox_inches="tight")
         plt.close(fig)
         return path
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _seeded_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` whose stream is a function of ``(seed,
+    index)`` alone (tpumix: ``fold_in(key(seed), index)``), so what a step
+    draws does not depend on how many steps this process has run.  The pair
+    goes through splitmix64's finaliser, a bijection of 64 bits that mixes
+    both halves into the low 32 bits, the only ones the CPU's Mersenne
+    Twister takes."""
+    z = ((((seed & 0xFFFFFFFF) << 32) | (index & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return torch.Generator(device=device).manual_seed(z ^ (z >> 31))
+
+
+class SyntheticTrainer(Trainer):
+    """Trainer over the synthetic mixing task (tpumix_torch/data/synthetic.py,
+    tpumix/train/trainer.py:426-552).
+
+    Each batch is generated on the device inside the step, so the training
+    loop reads no file and moves no batch from the host.  ``fit(steps_per_epoch,
+    val_seed, start, end)``: the train "loader" is the number of steps per
+    epoch, the val "loader" the seed of a fixed set of held-out batches
+    re-evaluated each epoch.  Step ``k`` of the run (the update count) draws
+    from a generator seeded by ``(config.seed + 1, k)`` and validation batch
+    ``j`` from ``(val_seed, j)``, so a resumed run draws what an
+    uninterrupted one does.  The step's augmentation draws from the step's
+    generator after the batch; dropout masks (off unless the model enables
+    them) from torch's global generator, as in :class:`Trainer`.
+    Checkpointing, keep-best-k, patience, ``metrics.csv`` and the loss plot
+    are inherited.
+
+    ``loss="gain"`` supervises the generator's true gain labels
+    (``make_gain_train_step``); the six self-supervised objectives train on
+    the generated ``(stems, mix)`` pairs.
+    """
+
+    _supports_gain_loss = True
+
+    def __init__(self, model: torch.nn.Module, frontend: FrontendConfig, config: TrainConfig,
+                 chunk_samples: int, sr: int = 44100, run_name: Optional[str] = None,
+                 device=None, val_batches: int = 4, context_mult: int = 4,
+                 level_shift_db: Optional[Tuple[float, float]] = (-14.0, 2.0),
+                 mix_bus_kind: Optional[str] = None):
+        """``context_mult``: generator context in chunks (levels and labels
+        are context-global, the model sees one random window; 1 = the
+        per-chunk task).  ``level_shift_db``: range of the shared per-item
+        level shift (labels shift-compensated); None disables it.
+        ``mix_bus_kind``: ``synthetic.mix_bus`` on the generated reference mix
+        (stresses the (stems, mix) objectives; gain labels stay clean)."""
+        super().__init__(model, frontend, config, run_name=run_name, device=device)
+        self.supervised = config.loss == "gain"
+        if self.supervised:
+            self._train_step = make_gain_train_step(self.state, frontend)
+            self._eval_step = make_gain_eval_step(self.state, frontend)
+        self.val_batches = val_batches
+        self._gen_kw = dict(n=chunk_samples, sr=sr, return_gains=self.supervised,
+                            context_mult=context_mult, level_shift_db=level_shift_db,
+                            mix_bus_kind=mix_bus_kind)
+
+    def _generate(self, generator: torch.Generator):
+        """``(stems, supervision target)`` for the configured objective: the
+        gain labels for ``"gain"``, the reference mix otherwise."""
+        out = synth_chunk_batch(generator, self.config.batch_size, **self._gen_kw)
+        return (out[0], out[2]) if self.supervised else out
+
+    def _run_train_epoch(self, steps) -> float:
+        losses = []
+        tic = time.perf_counter()
+        steps = int(steps)
+        for i in range(steps):
+            generator = _seeded_generator(self.config.seed + 1, self.state.step, self.device)
+            metrics = self._train_step(*self._generate(generator), generator)
+            losses.append(metrics["loss"])
+            if (i + 1) % self.config.log_every_steps == 0:
+                print(f"  [{i + 1}/{steps}] loss: {float(metrics['loss']):.4f}", flush=True)
+        mean = float(torch.stack(losses).mean()) if losses else 0.0  # waits for the device
+        self.last_epoch_stats = {"steps": steps, "wall_s": time.perf_counter() - tic,
+                                 "host_wait_s": 0.0}
+        return mean
+
+    def _run_val_epoch(self, val_seed) -> float:
+        losses = [self._eval_step(*self._generate(_seeded_generator(val_seed, j, self.device)))
+                  for j in range(self.val_batches)]
+        return float(torch.stack(losses).mean()) if losses else 0.0

@@ -12,13 +12,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
     Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or by
     default) and none is present.  Pass ``device="cpu"`` to run the plain
-    PyTorch versions of the kernels on the CPU."""
+    PyTorch versions of the kernels on the CPU.  ``cuda`` without an index
+    resolves to the current card (``cuda:0``), the device its tensors report,
+    so a tensor's device compares equal to the resolved one."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
