@@ -21,6 +21,7 @@ outside a checkout of the repository.  The last two lines are the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -691,7 +692,7 @@ def phase_k3_sizes(rates, smi):
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)  {ms / b_ms:.1f}x the bound  ({smi})")
 
 
-def _build_mixer(cfg, device, mix_cfg=None, transfer_dtype="float32"):
+def _build_mixer(cfg, device, mix_cfg=None, transfer_dtype="float32", **kw):
     from tpumix_torch.assets import load_checkpoint
     from tpumix_torch.infer.mixer import SongMixer
     from tpumix_torch.models.convert import state_dict_from_jax
@@ -699,7 +700,7 @@ def _build_mixer(cfg, device, mix_cfg=None, transfer_dtype="float32"):
 
     model = build_model(cfg)
     model.load_state_dict(state_dict_from_jax(load_checkpoint("scalar2s_synth")))
-    return SongMixer(model, cfg, mix_cfg, transfer_dtype=transfer_dtype, device=device)
+    return SongMixer(model, cfg, mix_cfg, transfer_dtype=transfer_dtype, device=device, **kw)
 
 
 def phase_main_path():
@@ -904,6 +905,40 @@ def _write_corpus(root: str, songs: int, seconds: float) -> None:
                     subtype="PCM_16")
 
 
+@contextlib.contextmanager
+def _wav_reader(native: bool):
+    """Within the block, WAV chunks are read through the port's C++ reader
+    (which must be built) or, as under ``TPUMIX_NO_NATIVE=1``, through numpy.
+    Yields ``[n]``: the reads the reader served, counted as they happen; the
+    block fails if the C++ reader served none, or numpy's run any."""
+    from tpumix_torch.data import _native
+
+    lib = _native.get_lib()
+    if lib is None:
+        raise AssertionError("[train] the C++ WAV reader (tpumix_torch/csrc/tpumixio.cpp) "
+                             "was not built")
+    real, taken = _native.read_mono_f32, [0]
+
+    def counted(*a):
+        out = real(*a)
+        taken[0] += out is not None
+        return out
+
+    _native.read_mono_f32 = counted
+    if not native:
+        os.environ["TPUMIX_NO_NATIVE"] = "1"
+        _native._lib, _native._tried = None, False  # get_lib() reads the variable again
+    try:
+        yield taken
+    finally:
+        _native.read_mono_f32 = real
+        os.environ.pop("TPUMIX_NO_NATIVE", None)
+        _native._lib, _native._tried = lib, True
+    if (taken[0] > 0) != native:
+        raise AssertionError(f"[train] the file loader took the wrong reader ({taken[0]} "
+                             "reads through the C++ reader)")
+
+
 class _Take:
     """The first ``n`` batches of a loader, each epoch."""
 
@@ -1061,23 +1096,29 @@ def phase_train(smi):
             if rel > 1e-3:
                 raise AssertionError(f"first-step loss with {impl} is off the K1 run's")
 
-        # --- steady epoch: wall per step, host wait, peak memory ---
+        # --- steady epochs of the file loader, the same batches read through
+        # the C++ reader and through numpy in turns: wall per step, host wait ---
         trainer = trainers["dif_pallas"]
         torch.cuda.reset_peak_memory_stats()
-        loader = _Take(BatchIterator(d_train, B, seed=1), 4)
-        trainer.fit(loader, _Take(BatchIterator(d_val, B, shuffle=False), 1), 2, 3)
-        st = trainer.last_epoch_stats
+        readers = ("C++ reader", "numpy (TPUMIX_NO_NATIVE=1)")
+        for epoch, reader in enumerate(readers + readers[::-1], start=2):
+            with _wav_reader(reader.startswith("C++")) as taken:
+                loader = _Take(BatchIterator(d_train, B, seed=1), 4)
+                trainer.fit(loader, _Take(BatchIterator(d_val, B, shuffle=False), 1), epoch,
+                            epoch + 1)
+            st = trainer.last_epoch_stats
+            log(f"[train] steady epoch from the file loader, {reader} ({taken[0]} reads "
+                f"through it), {st['steps']} steps of [48,4,88200] int16: wall "
+                f"{1e3 * st['wall_s'] / st['steps']:.1f} ms/step, host wait "
+                f"{1e3 * st['host_wait_s'] / st['steps']:.1f} ms/step ({smi})")
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[train] steady epoch, {st['steps']} steps of [48,4,88200] int16: wall "
-            f"{1e3 * st['wall_s'] / st['steps']:.1f} ms/step, host wait "
-            f"{1e3 * st['host_wait_s'] / st['steps']:.1f} ms/step; peak device memory "
-            f"{peak:.2f} GiB ({smi})")
+        log(f"[train] peak device memory over those epochs {peak:.2f} GiB")
         t0 = time.perf_counter()
         corpus = DeviceCorpus(data, songs[:5], 88200, layout="medleydb")
         torch.cuda.synchronize()
         upload = time.perf_counter() - t0
         loader = _Take(DeviceCorpusIterator(corpus, B, seed=1), 4)
-        trainer.fit(loader, _Take(DeviceCorpusIterator(corpus, B, shuffle=False), 1), 3, 4)
+        trainer.fit(loader, _Take(DeviceCorpusIterator(corpus, B, shuffle=False), 1), 6, 7)
         st = trainer.last_epoch_stats
         log(f"[train] steady epoch from the device corpus ({corpus.corpus.numel() * 2 / 1e6:.0f} "
             f"MB int16, read and uploaded in {upload:.1f} s), {st['steps']} steps: wall "
@@ -1151,6 +1192,288 @@ def phase_train(smi):
         if max(rel) > 1e-3 or float(diffs.max()) > 4.1e-3 or frac > 0.10:
             raise AssertionError("a train step on cuda disagrees with the same step on the cpu")
     return counts
+
+
+DP_RANKS = 2  # gloo ranks on the one card: NCCL refuses two ranks on one card
+DP_BATCH = 16  # the global batch: 8 rows per rank
+DP_STEPS = 3
+DP_LOSSES = ("reference", "coherent")
+DP_SONG_S = 300.0
+
+
+def _dp_train(loss: str, batches, mesh):
+    """``DP_STEPS`` steps of ``scalar2s`` (dropout off) on the global int16
+    batches, through ``data_parallel`` with ``mesh`` (one process without):
+    per-step loss, wall and device ms, and the BN running statistics after
+    the first and the last step."""
+    import torch
+
+    from tpumix_torch.config import preset
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.parallel.mesh import data_parallel
+    from tpumix_torch.train.state import create_train_state, make_train_step
+    from tpumix_torch.utils.device import disable_tf32
+
+    disable_tf32()
+    cfg = dataclasses.replace(preset("scalar2s"), use_dropout=False)
+    model = build_model(cfg, for_training=True, generator=torch.Generator().manual_seed(7))
+    state = create_train_state(model.to("cuda", memory_format=torch.channels_last), 1e-3, 1e-5)
+    step = make_train_step(state, cfg.frontend(), loss=loss, mesh=mesh)
+    if mesh is not None:
+        step = data_parallel(step, mesh)
+    out = {"loss": [], "wall_ms": [], "device_ms": []}
+    for k in range(DP_STEPS):
+        stems = torch.from_numpy(batches[f"stems{k}"]).cuda()
+        mix = torch.from_numpy(batches[f"mix{k}"]).cuda()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        metrics = step(stems, mix, None)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["wall_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["device_ms"].append(ev[0].elapsed_time(ev[1]))
+        out["loss"].append(float(metrics["loss"]))
+        if k in (0, DP_STEPS - 1):
+            out[f"stats{k + 1}"] = {n: b.detach().cpu().numpy()
+                                    for n, b in state.model.named_buffers() if "running_" in n}
+    return out
+
+
+def _dp_mixer(mesh):
+    """``scalar2s`` + ``scalar2s_synth.npz`` on the K2 trunk, its chunk axis
+    split over ``mesh`` (none: the plain mixer): gains of the 300 s song."""
+    from tpumix_torch.config import preset
+
+    cfg = dataclasses.replace(preset("scalar2s"), conv_impl="pallas")
+    kw = {} if mesh is None else {"mesh": mesh, "chunk_axis": "dp"}
+    return _build_mixer(cfg, "cuda", **kw)
+
+
+def _dp_rank(rank: int, init: str, work: str) -> int:
+    """One gloo rank of [dp] on ``cuda:0`` (``chip_smoke.py --dp-rank``):
+    the data-parallel steps, then the chunk-sharded mixer; the counts of its
+    launches of K1 and K2 on these paths go back to the parent."""
+    import torch
+
+    from tpumix_torch.ops.conv_block import conv_block_fused
+    from tpumix_torch.ops.stft_dif import stft_features_dif
+    from tpumix_torch.parallel import distributed
+    from tpumix_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(init, DP_RANKS, rank, backend="gloo", device="cuda:0")
+    try:
+        mesh = make_mesh((DP_RANKS,), ("dp",))
+        with np.load(os.path.join(work, "batches.npz")) as z:
+            batches = dict(z)
+        out = {}
+        stft_features_dif.launches = conv_block_fused.launches = 0
+        for loss in DP_LOSSES:
+            out[loss] = _dp_train(loss, batches, mesh)
+        out["k1_train"] = stft_features_dif.launches
+        mixer = _dp_mixer(mesh)
+        stems = make_song(DP_SONG_S, seed=3)
+        mixer.song_gains(stems[:, : 3 * mixer.chunk_samples])  # warm-up
+        torch.cuda.synchronize()
+        stft_features_dif.launches = conv_block_fused.launches = 0
+        t0 = time.perf_counter()
+        out["gains"] = mixer.song_gains(stems)
+        out["mix_s"] = time.perf_counter() - t0
+        out["k1_mix"], out["k2_mix"] = stft_features_dif.launches, conv_block_fused.launches
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def phase_dp(smi):
+    """Data parallelism on the one card: two gloo ranks on ``cuda:0`` train
+    ``scalar2s`` at full width (``[16,4,88200]`` int16 global batches of a
+    corpus from [train]'s writer, 8 rows per rank) for ``DP_STEPS`` steps of
+    ``reference`` and ``coherent`` and mix a 300 s song with the chunk axis
+    split over them (K2 trunk), each held against one process on the same
+    inputs; then ``train-synth --mesh 1``, one rank over NCCL."""
+    import torch
+
+    from tpumix_torch.data.dataset import MultitrackAudioDataset
+    from tpumix_torch.data.prefetch import BatchIterator
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        _write_corpus(data, songs=3, seconds=40.0)
+        d = MultitrackAudioDataset(data, songlist=sorted(os.listdir(data)), chunk_length=2.0,
+                                   seed=0, hop_length=512)
+        pcm = {}
+        for k, (stems, mix) in zip(range(DP_STEPS), BatchIterator(d, DP_BATCH, shuffle=False)):
+            pcm[f"stems{k}"] = np.clip(np.rint(stems * 32768.0), -32768, 32767).astype(np.int16)
+            pcm[f"mix{k}"] = np.clip(np.rint(mix * 32768.0), -32768, 32767).astype(np.int16)
+        np.savez(os.path.join(tmp, "batches.npz"), **pcm)
+
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                                   "--dp-init", init, "--dp-work", tmp], cwd=ROOT, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(DP_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:  # a rank that hangs is stopped, and the phase fails below
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"[dp] rank {r} exited {p.returncode}:\n{out}")
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+
+        batches = dict(np.load(os.path.join(tmp, "batches.npz")))
+        # the control: one process on the same global batches with their rows
+        # in reverse order, which changes only the order of the float sums
+        reverse = {k: np.ascontiguousarray(v[::-1]) for k, v in batches.items()}
+
+        def gaps(a, b):
+            return [abs(x - y) / abs(y) for x, y in zip(a["loss"], b["loss"])]
+
+        for loss in DP_LOSSES:
+            solo = _dp_train(loss, batches, None)
+            control = gaps(_dp_train(loss, reverse, None), solo)
+            got = ranks[0][loss]
+            if got["loss"] != ranks[1][loss]["loss"]:
+                raise AssertionError(f"[dp] {loss}: the ranks report different losses")
+            rel = gaps(got, solo)
+            stats = {}
+            for k in (1, DP_STEPS):
+                stats[k] = max(float(np.abs(got[f"stats{k}"][n] - ref).max())
+                               / max(float(np.abs(ref).max()), 1.0)
+                               for n, ref in solo[f"stats{k}"].items())
+            log(f"[dp] {loss}, {DP_RANKS} gloo ranks on cuda:0 vs one process, {DP_STEPS} steps "
+                f"of [{DP_BATCH},4,88200] int16: loss {['%.6f' % v for v in got['loss']]} vs "
+                f"{['%.6f' % v for v in solo['loss']]}, relative gap "
+                f"{', '.join(f'{v:.2e}' for v in rel)} (one process on the rows reversed: "
+                f"{', '.join(f'{v:.2e}' for v in control)}); BN running statistics, max |diff| / "
+                f"scale: {stats[1]:.2e} after step 1, {stats[DP_STEPS]:.2e} after step {DP_STEPS}")
+            log(f"[dp] {loss} per step (steps 2-{DP_STEPS}): wall "
+                f"{np.mean(got['wall_ms'][1:]):.1f} ms and device {np.mean(got['device_ms'][1:]):.1f}"
+                f" ms per rank ([8,4,88200] each), one process {np.mean(solo['wall_ms'][1:]):.1f} "
+                f"/ {np.mean(solo['device_ms'][1:]):.1f} ms ([16,4,88200]) ({smi})")
+            # step 1 from equal parameters: the loss to the JAX test's bound
+            # (tests/test_train.py:159, one step) and the statistics to 1e-4 of
+            # their scale.  Later steps: Adam's first update moves every
+            # parameter by +-lr along its gradient's sign, and a gradient of
+            # rounding noise (a conv bias in front of a BatchNorm; a head weight
+            # on the ReLU kink) takes either sign under another order of sums,
+            # so the runs drift apart as far as the control does.  Held: the
+            # later losses within tests/test_torch_train_step.py's 2e-2 or four
+            # times the control's drift, the statistics within its 1e-1
+            later = [max(2e-2, 4 * c) for c in control[1:]]
+            if (rel[0] > 1e-4 or any(r > b for r, b in zip(rel[1:], later))
+                    or stats[1] > 1e-4 or stats[DP_STEPS] > 1e-1):
+                raise AssertionError(f"[dp] {loss}: {DP_RANKS} ranks disagree with one process")
+        k1 = [r["k1_train"] for r in ranks]
+        log(f"[dp] K1 launches per rank on the data-parallel steps: {k1} "
+            f"({len(DP_LOSSES)} x {DP_STEPS} steps, one launch per step: stems; reference also "
+            f"the mix)")
+        if min(k1) <= 0:
+            raise AssertionError("[dp] a rank's train step never launched K1")
+
+        plain = _dp_mixer(None)
+        stems = make_song(DP_SONG_S, seed=3)
+        want = plain.song_gains(stems)
+        gaps = [float(np.abs(r["gains"] - want).max()) for r in ranks]
+        log(f"[dp] chunk-sharded SongMixer (scalar2s, K2 trunk, {DP_RANKS} gloo ranks on cuda:0) "
+            f"on a {DP_SONG_S:.0f} s song: {want.shape[0]} gains, max |diff| vs the plain mixer "
+            f"{max(gaps):.2e} (ranks {gaps}); per rank K1 "
+            f"{[r['k1_mix'] for r in ranks]}, K2 {[r['k2_mix'] for r in ranks]} launches; "
+            f"gains-only {[round(DP_SONG_S / r['mix_s'], 1) for r in ranks]} audio-s/s ({smi})")
+        if max(gaps) > 1e-4 or min(min(r["k1_mix"], r["k2_mix"]) for r in ranks) <= 0:
+            raise AssertionError("[dp] the chunk-sharded mixer disagrees with the plain mixer "
+                                 "or did not launch K1 and K2")
+        log(f"[dp] the {DP_RANKS} ranks took {t_ranks:.1f} s from start to exit")
+
+        out, dt = _run_cli(["train-synth", "--model", "scalar2sL", "--mesh", "1", "--batch-size",
+                            "48", "--steps-per-epoch", "2", "--epochs", "1", "--checkpoint-dir",
+                            os.path.join(tmp, "ckpt"), "--run-name", "nccl"])
+        epochs = _epoch_lines(out)
+        result = json.loads(out.strip().splitlines()[-1])
+        if ("backend nccl" not in out or len(epochs) != 1
+                or not np.isfinite(result["best_val_loss"])):
+            raise AssertionError(f"[dp] train-synth --mesh 1 over NCCL:\n{out}")
+        log(f"[dp] python -m tpumix_torch train-synth --mesh 1 (NCCL, world size 1): {epochs[0]} "
+            f"({dt:.1f} s)")
+    log(f"[dp] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"stft_features_dif": sum(r["k1_train"] + r["k1_mix"] for r in ranks),
+            "conv_block_fused": sum(r["k2_mix"] for r in ranks)}
+
+
+def _epoch(out: str, k: int):
+    """``(train loss, val loss, steps, wall s)`` of a CLI run's epoch ``k``."""
+    line = _epoch_lines(out)[k]
+    m = re.search(r"train ([\d.]+)\s+val ([\d.]+).*?(\d+) train steps in ([\d.]+)s", line)
+    return float(m.group(1)), float(m.group(2)), int(m.group(3)), float(m.group(4))
+
+
+def phase_dp4(smi, cards: int = 4, device: str = "cuda", model: str = "scalar2s",
+              synth_model: str = "scalar2sL", batch: int = 16, synth_batch: int = 192):
+    """``--phases dp4``, on a machine with ``cards`` cards (not in the default
+    run, which needs one): the CLI's data parallelism over NCCL, one rank a
+    card.  ``train --mesh 4`` on a written corpus (one epoch: one step of the
+    global batch, one validation batch; its dropout masks are per rank, so it
+    is not compared); ``train-synth --mesh 4`` (dropout off) for one step
+    against ``--mesh 1``, the same global batch on one card, the loss to 1e-4
+    relative; then both for two epochs of 4 steps at ``synth_batch`` (48 rows
+    a rank): wall per steady step."""
+    import torch
+
+    from tpumix_torch.config import preset
+
+    if device == "cuda" and torch.cuda.device_count() < cards:
+        raise AssertionError(f"[dp4] needs {cards} cards, have {torch.cuda.device_count()}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ckpt = os.path.join(tmp, "synth"), os.path.join(tmp, "ckpt")
+        # four songs of batch / 2 chunks: two train songs give one step of the
+        # global batch, two validation songs one batch
+        seconds = preset(model).chunk_length_s * batch / 2
+        _run_cli(["synth-data", "--out", data, "--n-train", "4", "--n-test", "1",
+                  "--duration", str(seconds)])
+        out, dt = _run_cli(["train", "--data", os.path.join(data, "train"), "--layout", "musdb18",
+                            "--model", model, "--batch-size", str(batch), "--epochs", "1",
+                            "--val-fraction", "0.5", "--device", device, "--checkpoint-dir",
+                            ckpt, "--run-name", "train", "--mesh", str(cards)])
+        loss, val, steps, _ = _epoch(out, 0)
+        log(f"[dp4] train --mesh {cards} ({re.search(r'backend (\w+)', out).group(1)}), {model}, "
+            f"global batch {batch}: {_epoch_lines(out)[0]} ({dt:.1f} s with start-up)")
+        if steps != 1 or not np.isfinite([loss, val]).all() or val == 0.0:
+            raise AssertionError(f"[dp4] train --mesh {cards}:\n{out}")
+        synth = ["train-synth", "--model", synth_model, "--batch-size", str(synth_batch),
+                 "--device", device, "--checkpoint-dir", ckpt]
+        first = {}
+        for mesh in (str(cards), "1"):
+            _run_cli([*synth, "--steps-per-epoch", "1", "--epochs", "1", "--run-name",
+                      f"one{mesh}", "--mesh", mesh])
+            with open(os.path.join(ckpt, f"one{mesh}", "metrics.csv")) as f:
+                first[mesh] = float(f.read().splitlines()[1].split(",")[1])  # 6 decimals
+        rel = abs(first[str(cards)] - first["1"]) / abs(first["1"])
+        log(f"[dp4] train-synth, one step of [{synth_batch},4,...] on {cards} ranks vs one: "
+            f"loss {first[str(cards)]} vs {first['1']}, relative gap {rel:.2e}")
+        if rel > 1e-4:
+            raise AssertionError(f"[dp4] train-synth --mesh {cards} disagrees with one rank")
+        for mesh in (str(cards), "1"):
+            out, dt = _run_cli([*synth, "--steps-per-epoch", "4", "--epochs", "2", "--run-name",
+                                f"synth{mesh}", "--mesh", mesh])
+            _, _, steps, wall = _epoch(out, 1)
+            log(f"[dp4] train-synth --mesh {mesh}, {synth_model}, global batch {synth_batch}: "
+                f"steady epoch {1e3 * wall / steps:.1f} ms per step ({dt:.1f} s with start-up, "
+                f"{smi})")
+    log(f"[dp4] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 SYNTH_KINDS = (None, "reverb", "comp", "limiter", "full")
@@ -1853,8 +2176,9 @@ def phase_eval(smi):
     log(f"[eval] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "cli", "train", "synth", "serve",
-          "eval")
+PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "cli", "train", "synth", "dp",
+          "serve", "eval")
+MULTI_CARD_PHASES = ("dp4",)  # asked for by name only: they need four cards
 
 
 def main(argv=None) -> int:
@@ -1863,17 +2187,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of the phases to run (default: all; the "
-                         "kernel record and the ok line are printed only by a full run)")
+                    help="comma-separated subset of the phases to run (default: all but dp4, "
+                         "which needs four cards and runs only when named; the kernel record "
+                         "and the ok line are printed only by a full run)")
     ap.add_argument("--compare-with", metavar="DIR",
                     help="also time the frontend entries of the tpumix_torch in DIR (e.g. a git "
                          "archive of another commit) against this checkout's, in turns")
     ap.add_argument("--entry-times", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-init", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = sorted(set(phases) - set(PHASES))
+    unknown = sorted(set(phases) - set(PHASES) - set(MULTI_CARD_PHASES))
     if unknown:
-        ap.error(f"unknown phases {unknown}; have {PHASES}")
+        ap.error(f"unknown phases {unknown}; have {PHASES + MULTI_CARD_PHASES}")
 
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.abspath(args.entry_times or ROOT))
@@ -1886,6 +2214,8 @@ def main(argv=None) -> int:
 
         print(json.dumps(entry_times()))
         return 0
+    if args.dp_rank is not None:  # one rank of phase_dp
+        return _dp_rank(args.dp_rank, args.dp_init, args.dp_work)
     name, smi = phase_device()
     import torch
 
@@ -1951,11 +2281,16 @@ def main(argv=None) -> int:
     if "synth" in phases:
         for kname, n in phase_synth(smi).items():
             launches[kname] = launches.get(kname, 0) + n
+    if "dp" in phases:
+        for kname, n in phase_dp(smi).items():
+            launches[kname] = launches.get(kname, 0) + n
     if "serve" in phases:
         for kname, n in phase_serve(smi).items():
             launches[kname] = launches.get(kname, 0) + n
     if "eval" in phases:
         phase_eval(smi)
+    if "dp4" in phases:
+        phase_dp4(smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
     if set(phases) != set(PHASES):
         log(f"[done] partial run ({','.join(phases)}): no kernel record, no ok line")

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ``tpumix_torch/`` and not
 ``chip_smoke.py`` imports JAX, Flax or the JAX package, importing the port
-loads none of them, and the default device is the card — never a silent CPU
-fall-back."""
+loads none of them (nor the optional matplotlib and yaml, which the modules
+that use them import where they use them), and the default device is the card
+— never a silent CPU fall-back."""
 
 import ast
 import os
@@ -50,11 +51,16 @@ def test_import_loads_no_jax_module():
         "tpumix_torch.data.prefetch, tpumix_torch.serve, tpumix_torch.infer.streaming, "
         "tpumix_torch.eval.evaluator, tpumix_torch.models.resnet, tpumix_torch.ops.loudness, "
         "tpumix_torch.data.songlists, tpumix_torch.data.synthetic, "
-        "tpumix_torch.data.device_corpus\n"
+        "tpumix_torch.data.device_corpus, tpumix_torch.parallel, "
+        "tpumix_torch.parallel.distributed, tpumix_torch.parallel.mesh, "
+        "tpumix_torch.data._native, tpumix_torch.data.surgery, tpumix_torch.eval.listening\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpumix'))\n"
-        "print(len(new)); assert not bad, bad\n"
+        "assert not bad, bad\n"
+        "lazy = sorted(m for m in new if m.split('.')[0] in ('matplotlib', 'yaml'))\n"
+        "assert not lazy, f'optional packages imported eagerly: {lazy}'\n"
+        "print(len(new))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

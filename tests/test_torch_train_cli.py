@@ -147,7 +147,7 @@ def test_train_parser_mirrors_tpumix_flag_for_flag():
                    and command in a.choices).choices[command]
         return {a.dest: a.default for a in sub._actions if a.dest != "help"}
 
-    for command, missing in (("train", {"mesh"}), ("train-synth", {"mesh"}),
+    for command, missing in (("train", set()), ("train-synth", set()),
                              ("export-checkpoint", set()), ("synth-data", set())):
         ours, theirs = flags(cli.build_parser(), command), flags(jax_build_parser(), command)
         extra = {"device"} if command.startswith("train") else set()

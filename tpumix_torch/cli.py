@@ -7,11 +7,18 @@
     python -m tpumix_torch mix                mix one song (or a catalogue) with a checkpoint
     python -m tpumix_torch evaluate           LoudnessEvaluator sweep -> stats.xlsx/csv
     python -m tpumix_torch mean-loudness      per-class mean LUFS scan -> json
+    python -m tpumix_torch precompute         feature cache for a songlist
+    python -m tpumix_torch surgery            MedleyDB raw-stem -> category-stem grouping
+    python -m tpumix_torch listening-prep     export MUSHRA listening-test wavs
+    python -m tpumix_torch listening-parse    parse webMUSHRA scores -> boxplot
     python -m tpumix_torch serve              HTTP mixing service
 
 The flags are those of the same ``python -m tpumix`` commands plus ``--device``
-(``cuda`` by default; ``cpu`` runs the kernels' plain versions).  ``train``
-and ``train-synth`` lack ``--mesh`` (ROADMAP.md item 15).
+(``cuda`` by default; ``cpu`` runs the kernels' plain versions).  ``train
+--mesh N`` and ``train-synth --mesh N`` train data-parallel over N ranks of
+``torch.distributed`` (one card each, NCCL; with ``--device cpu``, N gloo
+processes): under torchrun with ``WORLD_SIZE == N`` the command joins that
+group, otherwise it starts the N ranks itself.
 """
 
 from __future__ import annotations
@@ -143,7 +150,101 @@ def _warn_if_lstsq_degenerate(val_loader) -> None:
         )
 
 
+def _data_parallel(args, body) -> int:
+    """Run ``body(args)`` on every rank of an ``--mesh N`` process group
+    (tpumix/cli.py:279-284: N data-parallel devices, one command).
+
+    A rank already in a group runs it; under torchrun (``WORLD_SIZE``) the
+    process joins; else one rank runs here (N = 1) or N are spawned, their
+    group met through a file in a temporary directory.  On CUDA every rank
+    needs a card of its own (NCCL refuses two ranks on one card), so N above
+    the cards present raises instead of running fewer."""
+    import torch
+
+    from tpumix_torch.parallel import distributed
+
+    n = int(args.mesh)
+    if n < 1:
+        raise SystemExit(f"--mesh {args.mesh}: expected a positive rank count")
+    if args.batch_size % n:
+        raise SystemExit(f"--batch-size {args.batch_size} (the global batch) does not split "
+                         f"over --mesh {n} ranks")
+    if torch.distributed.is_initialized():
+        return body(args)
+    if args.device == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--mesh {n} on --device cuda needs {n} cards, this machine has "
+                         f"{torch.cuda.device_count()} (NCCL refuses two ranks on one card)")
+    if "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != n:
+            raise SystemExit(f"--mesh {n} under a launcher of WORLD_SIZE "
+                             f"{os.environ['WORLD_SIZE']}")
+        distributed.initialize(device=None if args.device == "cuda" else args.device)
+        _say_joined(n)
+        try:
+            return body(args)
+        finally:
+            distributed.shutdown()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tpumix-mesh-") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        if n == 1:
+            _rank_main(0, args, body, n, init)
+        else:
+            import torch.multiprocessing as mp
+
+            mp.spawn(_rank_main, args=(args, body, n, init), nprocs=n, join=True)
+    return 0
+
+
+def _rank_main(rank: int, args, body, n: int, init: str) -> None:
+    """One rank of :func:`_data_parallel`'s group: its device is
+    ``cuda:<rank>`` (``cpu`` for ``--device cpu``)."""
+    import torch
+
+    from tpumix_torch.parallel import distributed
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(n))
+    if args.device == "cpu" and n > 1:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    distributed.initialize(init, n, rank,
+                           device=f"cuda:{rank}" if args.device == "cuda" else args.device)
+    _say_joined(n)
+    try:
+        rc = body(args)
+    finally:
+        distributed.shutdown()
+    if rc:
+        raise SystemExit(rc)
+
+
+def _say_joined(n: int) -> None:
+    import torch
+
+    _say(f"[mesh] {n} data-parallel ranks, backend {torch.distributed.get_backend()}")
+
+
+def _mesh_config(args) -> dict:
+    """``TrainConfig`` fields of ``--mesh``: one ``dp`` axis of N ranks."""
+    return {"mesh_shape": (int(args.mesh),), "mesh_axis_names": ("dp",)} if args.mesh else {}
+
+
+def _say(msg: str) -> None:
+    """Print on rank 0 only (every rank of a data-parallel run computes the
+    same result)."""
+    from tpumix_torch.parallel.distributed import process_index
+
+    if process_index() == 0:
+        print(msg, flush=True)
+
+
 def cmd_train(args) -> int:
+    if args.mesh:
+        return _data_parallel(args, _train)
+    return _train(args)
+
+
+def _train(args) -> int:
     import torch
 
     from tpumix_torch.config import TrainConfig, preset
@@ -178,9 +279,15 @@ def cmd_train(args) -> int:
     # validation data is NEVER augmented (random val gains would bias the
     # early-stopping signal; the reference never augments validation)
     if not val_songs:
-        print("[train] WARNING: validation split is empty at this "
-              "--val-fraction; validating on the training songs")
+        _say("[train] WARNING: validation split is empty at this "
+             "--val-fraction; validating on the training songs")
         val_songs = train_songs
+    # with --mesh, --batch-size is the global batch and each rank loads its
+    # rows of it (tpumix/cli.py:606)
+    from tpumix_torch.parallel.distributed import process_count, process_index
+
+    shards = dict(num_shards=process_count(), shard_index=process_index())
+    local_batch = args.batch_size // shards["num_shards"]
 
     if args.device_corpus:
         # the corpus goes onto the device once as int16 and every batch is a
@@ -190,9 +297,9 @@ def cmd_train(args) -> int:
         from tpumix_torch.data.device_corpus import DeviceCorpus, DeviceCorpusIterator
 
         if args.transfer_dtype != "float32":
-            print(f"[train] WARNING: --transfer-dtype {args.transfer_dtype} is "
-                  "ignored with --device-corpus (the corpus is stored int16 on "
-                  "device and the step dequantises by dtype; there is no wire)")
+            _say(f"[train] WARNING: --transfer-dtype {args.transfer_dtype} is "
+                 "ignored with --device-corpus (the corpus is stored int16 on "
+                 "device and the step dequantises by dtype; there is no wire)")
         chunk_samples = model_cfg.frontend().chunk_samples(model_cfg.chunk_length_s)
         c_train = DeviceCorpus(args.data, train_songs, chunk_samples, args.layout,
                                device=args.device)
@@ -201,16 +308,16 @@ def cmd_train(args) -> int:
         c_val = (c_train if val_songs == train_songs else
                  DeviceCorpus(args.data, val_songs, chunk_samples, args.layout,
                               device=args.device))
-        train_loader = DeviceCorpusIterator(c_train, args.batch_size, seed=args.seed)
-        val_loader = DeviceCorpusIterator(c_val, args.batch_size, shuffle=False,
-                                          seed=args.seed)
+        train_loader = DeviceCorpusIterator(c_train, local_batch, seed=args.seed, **shards)
+        val_loader = DeviceCorpusIterator(c_val, local_batch, shuffle=False, seed=args.seed,
+                                          **shards)
         train_len = c_train.num_chunks
         step_augment, wire_dtype = args.augment, "float32"
     else:
         d_train = make_ds(train_songs, args.augment)
-        train_loader = BatchIterator(d_train, args.batch_size, seed=args.seed)
-        val_loader = BatchIterator(make_ds(val_songs, False), args.batch_size, shuffle=False,
-                                   seed=args.seed)
+        train_loader = BatchIterator(d_train, local_batch, seed=args.seed, **shards)
+        val_loader = BatchIterator(make_ds(val_songs, False), local_batch, shuffle=False,
+                                   seed=args.seed, **shards)
         train_len = len(d_train)
         step_augment, wire_dtype = False, args.transfer_dtype
 
@@ -228,6 +335,7 @@ def cmd_train(args) -> int:
         lr_schedule=args.lr_schedule,
         lr_total_steps=(args.epochs * steps_per_epoch
                         if args.lr_schedule == "cosine" else None),
+        **_mesh_config(args),
     )
     # parameter init and dropout masks: both from --seed (dropout draws from
     # torch's global generator, train/state.py)
@@ -236,11 +344,11 @@ def cmd_train(args) -> int:
                         for_training=True)
     trainer = Trainer(model, model_cfg.frontend(), cfg, run_name=args.run_name,
                       device=args.device)
-    if args.loss.startswith("lstsq"):
+    if args.loss.startswith("lstsq") and trainer.is_main:
         _warn_if_lstsq_degenerate(val_loader)
     start = trainer.resume() if args.resume else 0
     result = trainer.fit(train_loader, val_loader, start, args.epochs)
-    print(json.dumps({
+    _say(json.dumps({
         "best_epoch": result.best_epoch, "best_val_loss": result.best_val_loss,
         "stopped_early": result.stopped_early, "checkpoint_dir": trainer.ckpt_dir,
     }))
@@ -248,6 +356,12 @@ def cmd_train(args) -> int:
 
 
 def cmd_train_synth(args) -> int:
+    if args.mesh:
+        return _data_parallel(args, _train_synth)
+    return _train_synth(args)
+
+
+def _train_synth(args) -> int:
     """Train on the synthetic mixing task, each batch generated on the device
     inside the step (data/synthetic.py): the loop reads no file."""
     import torch
@@ -267,6 +381,7 @@ def cmd_train_synth(args) -> int:
         keep_checkpoints=args.keep_checkpoints, loss=args.loss,
         lr_schedule=args.lr_schedule,
         lr_total_steps=args.epochs * args.steps_per_epoch,
+        **_mesh_config(args),
     )
     # parameter init and dropout masks from --seed, as in `train`
     torch.manual_seed(args.seed)
@@ -281,7 +396,7 @@ def cmd_train_synth(args) -> int:
     start = trainer.resume() if args.resume else 0
     # validation batches from seed + 7 (tpumix: key(seed + 7))
     result = trainer.fit(args.steps_per_epoch, args.seed + 7, start, args.epochs)
-    print(json.dumps({
+    _say(json.dumps({
         "best_epoch": result.best_epoch, "best_val_loss": result.best_val_loss,
         "stopped_early": result.stopped_early, "checkpoint_dir": trainer.ckpt_dir,
     }))
@@ -348,6 +463,58 @@ def cmd_mean_loudness(args) -> int:
     with open(args.out, "w") as f:
         json.dump(ml, f, indent=2)
     print(json.dumps(ml))
+    return 0
+
+
+def cmd_precompute(args) -> int:
+    from tpumix_torch.config import preset
+    from tpumix_torch.data.dataset import MultitrackAudioDataset
+
+    model_cfg = preset(args.model)
+    d = MultitrackAudioDataset(
+        args.data, songlist=_songlist(args) or None, chunk_length=model_cfg.chunk_length_s,
+        hop_length=model_cfg.hop_length, layout=args.layout, return_features=True,
+        cache_dir=args.cache_dir,
+    )
+    d.precompute_features()
+    print(f"[precompute] cache at {args.cache_dir}")
+    return 0
+
+
+def cmd_surgery(args) -> int:
+    from tpumix_torch.data.surgery import process_root
+
+    done = process_root(args.data, naive_sums=args.naive_sums)
+    print(f"[surgery] processed {len(done)} songs")
+    return 0
+
+
+def cmd_listening_prep(args) -> int:
+    import numpy as np
+
+    from tpumix_torch.eval import listening
+    from tpumix_torch.models.baselines import MeanLoudnessModel, RandomModel
+
+    mixer = _load_mixer(args)
+    with open(args.mean_loudness) as f:
+        mean_loudness = json.load(f)
+    models = {
+        "random": RandomModel(rng=np.random.default_rng(args.seed)),
+        "loudnorm": MeanLoudnessModel(mean_loudness),
+        "mix": mixer,
+    }
+    listening.process_songlist(args.data, _songlist(args), models, save_dir=args.out)
+    return 0
+
+
+def cmd_listening_parse(args) -> int:
+    from tpumix_torch.eval import listening
+
+    by_model, _ = listening.parse_json(args.scores)
+    g = listening.global_scores(by_model)
+    keys = sorted(g)
+    listening.produce_boxplot([g[k] for k in keys], keys, args.out)
+    print(f"[listening] boxplot at {args.out}")
     return 0
 
 
@@ -449,6 +616,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "batches there: per-step host traffic is a [B] offset vector.  For "
                          "corpora that fit the card next to the model; augmentation runs in "
                          "the step (data/device_corpus.py)")
+    sp.add_argument("--mesh", default="",
+                    help="data-parallel rank count: --batch-size is the global batch, each "
+                         "rank trains on its rows (one card per rank on cuda; gloo "
+                         "processes with --device cpu)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("train-synth", help="train on the synthetic task, generated on the "
@@ -507,6 +678,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--resume", action="store_true",
                     help="continue from the newest checkpoint of this run")
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sp.add_argument("--mesh", default="",
+                    help="data-parallel rank count: --batch-size is the global batch, each "
+                         "rank generates and trains on its rows")
     sp.set_defaults(fn=cmd_train_synth)
 
     sp = sub.add_parser("synth-data", help="write a synthetic eval corpus")
@@ -553,6 +727,27 @@ def build_parser() -> argparse.ArgumentParser:
     common(sp, checkpoint=False)
     sp.add_argument("--out", default="./mean_loudness.json")
     sp.set_defaults(fn=cmd_mean_loudness)
+
+    sp = sub.add_parser("precompute", help="write the feature cache")
+    common(sp, checkpoint=False)
+    sp.add_argument("--cache-dir", required=True)
+    sp.set_defaults(fn=cmd_precompute)
+
+    sp = sub.add_parser("surgery", help="MedleyDB stem grouping")
+    sp.add_argument("--data", required=True)
+    sp.add_argument("--naive-sums", action="store_true")
+    sp.set_defaults(fn=cmd_surgery)
+
+    sp = sub.add_parser("listening-prep", help="export listening-test wavs")
+    common(sp)
+    sp.add_argument("--mean-loudness", required=True)
+    sp.add_argument("--out", default="./test_data")
+    sp.set_defaults(fn=cmd_listening_prep)
+
+    sp = sub.add_parser("listening-parse", help="parse webMUSHRA scores json")
+    sp.add_argument("--scores", required=True)
+    sp.add_argument("--out", default="./test_figures/global.png")
+    sp.set_defaults(fn=cmd_listening_parse)
 
     sp = sub.add_parser("serve", help="HTTP mixing service")
     sp.add_argument("--model", default="scalar2s", choices=_MODELS)

@@ -107,26 +107,40 @@ class DeviceCorpusIterator:
     ``(stems [B, 4, C] int16, mix [B, C] int16)`` batches — a drop-in for
     ``BatchIterator`` in ``Trainer.fit``, which hands device batches straight
     to the step.  The order is the JAX package's for the same seed;
-    ``drop_last`` keeps shapes static."""
+    ``drop_last`` keeps shapes static.
+
+    ``num_shards`` / ``shard_index``: data parallelism.  Every rank builds the
+    iterator with the same seed, the global batch is ``batch_size *
+    num_shards`` chunks of that one order, and rank ``shard_index`` gathers
+    its contiguous block of each (the rows a one-process step on the global
+    batch gives it, tpumix_torch/parallel/mesh.py).  The remainder is
+    dropped, so every rank runs the same number of steps."""
 
     def __init__(self, corpus: DeviceCorpus, batch_size: int, shuffle: bool = True,
-                 seed: Optional[int] = None, drop_last: bool = True):
+                 seed: Optional[int] = None, drop_last: bool = True, num_shards: int = 1,
+                 shard_index: int = 0):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} outside [0, {num_shards})")
         self.corpus = corpus
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.drop_last = drop_last
+        self.drop_last = drop_last or num_shards > 1
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self._rng = np.random.default_rng(seed)
         self._table = corpus.index_table()
 
     def __len__(self) -> int:
-        n = self.corpus.num_chunks
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, step = self.corpus.num_chunks, self.batch_size * self.num_shards
+        return n // step if self.drop_last else -(-n // step)
 
     def __iter__(self):
         order = np.arange(self.corpus.num_chunks)
         if self.shuffle:
             self._rng.shuffle(order)
-        stop = len(self) * self.batch_size if self.drop_last else len(order)
-        for lo in range(0, stop, self.batch_size):
+        step = self.batch_size * self.num_shards
+        stop = len(self) * step if self.drop_last else len(order)
+        for lo in range(0, stop, step):
+            lo += self.shard_index * self.batch_size
             rows = self._table[order[lo: lo + self.batch_size]]
             yield self.corpus.batch(rows[:, 0], rows[:, 1])

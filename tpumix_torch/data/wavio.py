@@ -1,10 +1,15 @@
-"""WAV file I/O in numpy (a copy of the numpy paths of tpumix/data/wavio.py).
+"""WAV file I/O (tpumix/data/wavio.py).
 
-A RIFF/WAVE parser/writer: PCM 16/24/32-bit and IEEE float32/64, any channel
-count, chunk skipping, partial (seek) reads and metadata-only probes.  API
-mirrors the soundfile subset the reference touches: ``read``, ``write``,
+* this module: a RIFF/WAVE parser/writer in numpy: PCM 16/24/32-bit and IEEE
+  float32/64, any channel count, chunk skipping, partial (seek) reads and
+  metadata-only probes;
+* ``tpumix_torch/data/_native.py``: the C++ reader
+  (tpumix_torch/csrc/tpumixio.cpp), which ``read_mono`` takes when it is
+  built; this module is its fallback (``TPUMIX_NO_NATIVE=1`` selects it).
+
+API mirrors the soundfile subset the reference touches: ``read``, ``write``,
 ``info``.  Arrays are ``[samples, channels]`` float, or 1-D for mono unless
-``always_2d``.  The JAX package's optional C++ reader is not ported yet.
+``always_2d``.
 """
 
 from __future__ import annotations
@@ -133,9 +138,16 @@ def info(path) -> WavInfo:
 
 
 def read_mono(path: str, start: int = 0, count: Optional[int] = None) -> np.ndarray:
-    """Decode + stereo->mono downmix (channel mean) of ``count`` frames."""
+    """Fused decode + stereo->mono downmix (channel mean) of ``count`` frames,
+    the dataset's hot per-chunk read: through the C++ reader when it is
+    built, numpy otherwise."""
     if count is None:
         count = info(path).frames - start
+    from tpumix_torch.data import _native
+
+    out = _native.read_mono_f32(path, start, count)
+    if out is not None:
+        return out
     audio, _ = read(path, start=start, stop=start + count, always_2d=True)
     return audio.mean(axis=1).astype(np.float32)
 

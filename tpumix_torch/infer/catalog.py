@@ -1,8 +1,8 @@
-"""Catalogue mixing driver (tpumix/infer/catalog.py without the plotting
-helper): mix every song of a songlist, with disk reads of song k+1 on a
-background thread while song k runs on the device.  Writes
-``{song}_mixed.wav`` (and ``{song}_sum.wav`` with ``naive_sum``), as the
-reference's inference.ipynb cell 9 does.
+"""Catalogue mixing (tpumix/infer/catalog.py): mix every song of a
+songlist, with disk reads of song k+1 on a background thread while song k
+runs on the device.  Writes ``{song}_mixed.wav`` (and ``{song}_sum.wav`` with
+``naive_sum``), as the reference's inference.ipynb cell 9 does.  Also the
+gain-curve plot (``matplotlib`` imported where it is used).
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -18,6 +18,29 @@ from tpumix_torch.data import wavio
 from tpumix_torch.data.loaders import load_tracks, load_tracks_musdb18
 
 STEMS = ("bass", "drums", "vocals", "other")
+
+
+def plot_gain_curves(raw_gains: Dict[str, list], smooth_gains: Dict[str, list],
+                     out_path: str, title: str = "") -> str:
+    """Per-stem raw vs smoothed gain-curve plot (the reference's single-song
+    inspection cells, inference.ipynb cells 11-14)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(2, 2, figsize=(10, 6), sharex=True)
+    for ax, stem in zip(axes.ravel(), STEMS):
+        ax.plot(raw_gains[stem], alpha=0.5, label="raw")
+        ax.plot(smooth_gains[stem], label="smoothed")
+        ax.set_title(stem)
+        ax.legend(fontsize=8)
+    if title:
+        fig.suptitle(title)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return out_path
 
 
 def mix_catalog(

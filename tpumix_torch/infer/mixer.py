@@ -104,11 +104,16 @@ class SongMixer:
         always the original waveform scaled by the gains.
     :param device: ``None`` = ``cuda`` (raises without a card); ``"cpu"``
         runs the kernels' plain versions.
+    :param mesh: with ``chunk_axis``, a ``tpumix_torch.parallel.Mesh`` whose
+        ranks split each segment's chunks along that axis: every rank runs the
+        same calls on the same song (SPMD), computes its contiguous share of
+        each segment and receives the others' gains, so every method returns
+        the full result on every rank.
     """
 
     def __init__(self, model: torch.nn.Module, model_cfg: ModelConfig,
                  mix_cfg: Optional[MixConfig] = None, transfer_dtype: str = "float32",
-                 device=None):
+                 device=None, mesh=None, chunk_axis: Optional[str] = None):
         if transfer_dtype not in _WIRE_DTYPES:
             raise ValueError(
                 f"unknown transfer_dtype {transfer_dtype!r}; "
@@ -125,6 +130,8 @@ class SongMixer:
         self.frontend.resolved_implementation()  # raise early if not ported
         self.chunk_samples = self.frontend.chunk_samples(model_cfg.chunk_length_s)
         self.transfer_dtype = transfer_dtype
+        self._chunk_axis = (mesh.axis(chunk_axis)
+                            if mesh is not None and chunk_axis is not None else None)
         self._packer: Optional[ThreadPoolExecutor] = None
 
     # --- device path ---------------------------------------------------------
@@ -138,13 +145,29 @@ class SongMixer:
         num_stems = flat.shape[0]
         x = _dequantize_on_device(flat, scales)
         x = x.reshape(num_stems, n_chunks, self.chunk_samples).transpose(0, 1)  # [N, S, C]
+        axis = self._chunk_axis
+        if axis is not None:
+            x = x[axis.rows(n_chunks)]  # this rank's share of the chunks
         feats_tm = spectrogram_features_tm(x, self.frontend)  # [N, S, T, F]
         # [N, S, F, T] as a channels_last view: physical [N, F, T, S]
         feats = feats_tm.permute(0, 3, 2, 1).contiguous().permute(0, 3, 1, 2)
-        return self.model.gains(feats)
+        gains = self.model.gains(feats)
+        if axis is None or axis.size == 1:
+            return gains
+        # gather: each rank fills its rows of a zero buffer, and a sum over
+        # the ranks (the one collective gloo also has for CUDA tensors) adds
+        # zeros to every other row, exactly
+        full = gains.new_zeros((n_chunks, *gains.shape[1:]))
+        full[axis.rows(n_chunks)] = gains
+        return axis.all_reduce(full)
 
     def _segment_len(self) -> int:
-        return self.mix_cfg.max_chunks or SEGMENT_CHUNKS
+        """Chunks per segment, rounded up so a sharded chunk axis divides it
+        (tpumix/infer/mixer.py:314-321)."""
+        seg = self.mix_cfg.max_chunks or SEGMENT_CHUNKS
+        if self._chunk_axis is not None:
+            seg = -(-seg // self._chunk_axis.size) * self._chunk_axis.size
+        return seg
 
     def _host_buffer(self, shape, dtype) -> torch.Tensor:
         """Host staging buffer, page-locked when the card is the target so
@@ -379,3 +402,31 @@ class SongMixer:
         if peak > 0:
             total = total / peak
         return total
+
+
+# shim mixers keyed on (model, chunk/hop config, device) identity: a fresh
+# SongMixer per call would pack the model's weights for the card anew on
+# every song of a catalogue loop.  A strong reference to the model is held
+# WITH the cache entry so the id() key cannot go stale; the cache is small
+# and FIFO-bounded (tpumix/infer/mixer.py:555-581).
+_SHIM_MIXERS: Dict[tuple, tuple] = {}
+_SHIM_MIXERS_MAX = 8
+
+
+def mix_song_smooth(dataset, model, loaded_tracks, chunk_length=1, sr=44100, *,
+                    hop_length=512, device=None):
+    """Drop-in signature shim for the reference free function
+    (inference_utils.py:105): ``(mixed_tracks, raw_gains, smooth_gains)``.
+    ``dataset`` and ``sr`` are accepted and unused, as in the JAX package.
+    Prefer :class:`SongMixer`; this shim reuses one mixer per (model, chunk /
+    hop config, device).  ``device``: ``None`` = ``cuda``."""
+    key = (id(model), float(chunk_length), int(hop_length), str(resolve_device(device)))
+    entry = _SHIM_MIXERS.get(key)
+    if entry is None:
+        cfg = ModelConfig(name="compat", chunk_length_s=chunk_length, hop_length=hop_length)
+        while len(_SHIM_MIXERS) >= _SHIM_MIXERS_MAX:
+            _SHIM_MIXERS.pop(next(iter(_SHIM_MIXERS)))
+        # (mixer, model): the latter pins the id() alive
+        entry = (SongMixer(model, cfg, device=device), model)
+        _SHIM_MIXERS[key] = entry
+    return entry[0].mix_song_smooth(loaded_tracks)

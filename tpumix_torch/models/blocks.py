@@ -40,11 +40,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     running statistics travel: an exported ``.npz`` is read by tpumix and its
     checkpoints are read here, so the port keeps flax's.  The difference is
     1/n of the variance: invisible at the full width (n = 48*511*85 after
-    block 1), visible on small batches."""
+    block 1), visible on small batches.
+
+    With ``global_axis`` (a ``MeshAxis`` of more than one rank, set by
+    :func:`use_global_batchnorm`) a training batch is normalised over the
+    GLOBAL batch, the ranks' shards together, as the JAX step under GSPMD
+    does (tpumix/train/state.py:16-19).  ``nn.SyncBatchNorm`` is not used:
+    it folds the unbiased variance."""
+
+    global_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.global_axis is not None and self.global_axis.size > 1:
+            return self._global_forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
         # torch folds the unbiased variance into a copy (which autograd keeps
@@ -57,6 +67,38 @@ class BatchNorm2d(nn.BatchNorm2d):
             kept = self.running_var * (1.0 - self.momentum)
             self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training-mode batch norm over the ranks' shards together, in
+        float32: the global mean, then the biased variance about it (two
+        passes, each a differentiable all-reduce of per-channel sums, so the
+        backward sums the gradients of every rank's loss)."""
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        axis = self.global_axis
+        xf = x.float()
+        n = (x.numel() // x.shape[1]) * axis.size
+        mean = axis.sum_with_grad(xf.sum(dim=(0, 2, 3))) / n
+        xc = xf - mean[:, None, None]
+        var = axis.sum_with_grad(torch.square(xc).sum(dim=(0, 2, 3))) / n
+        scale = torch.rsqrt(var + self.eps)
+        if self.affine:
+            scale = scale * self.weight
+        y = xc * scale[:, None, None]
+        if self.affine:
+            y = y + self.bias[:, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        return y.to(x.dtype)
+
+
+def use_global_batchnorm(model: nn.Module, axis) -> None:
+    """Normalise every :class:`BatchNorm2d` of ``model`` over the global batch
+    of the mesh axis ``axis`` (a ``MeshAxis``; None: each rank's own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.global_axis = axis
 
 
 class ConvBlock2d(nn.Module):

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries: the CUDA kernels and the WAV
+reader.
 
-Each ``tpumix_torch/csrc/<name>.cu`` compiles with nvcc into a shared library
-with a plain C interface, at first use, into ``tpumix_torch/_build/`` under a
-name keyed on a hash of the source, the shared headers and the flags, and
-loads with ctypes.  A build
-uses only the sources in the package.  ``build()`` compiles several sources
-at once, one nvcc process each.
+Each ``tpumix_torch/csrc/<name>.cu`` compiles with nvcc, and the host-only
+``tpumix_torch/csrc/<name>.cpp`` (the WAV reader) with g++, into a shared
+library with a plain C interface, at first use, into ``tpumix_torch/_build/``
+under a name keyed on a hash of the source, the shared headers and the flags,
+and loads with ctypes.  A build uses only the sources in the package.
+``build()`` compiles several sources at once, one compiler process each.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the JAX package's native/Makefile flags for the host library
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-Wall", "-Wextra")
+# libraries built from a .cpp with g++ (no CUDA)
+HOST_SOURCES = ("tpumixio",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +62,31 @@ EXTRA_ENTRIES = {
 }
 
 
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I64 = ctypes.c_int64
+_READ = (ctypes.c_char_p, _I64, _I64, _F32P)
+# the WAV reader's C entries, (name, argument types, result type), as the JAX
+# package declares them (tpumix/data/_native.py:55-84)
+HOST_ENTRIES = {
+    "tpumixio": (
+        ("tpumixio_info", (ctypes.c_char_p, _I32P, _I32P, ctypes.POINTER(_I64), _I32P), _I),
+        ("tpumixio_read_f32", _READ, _I64),
+        ("tpumixio_read_mono_f32", _READ, _I64),
+        ("tpumixio_read_chunks_mono_f32", _READ, _I64),
+        ("tpumixio_write",
+         (ctypes.c_char_p, _F32P, _I64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32), _I),
+    ),
+}
+
+
+def gxx_path() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("g++ not found: set CXX or put g++ on PATH")
+    return found
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -69,20 +100,26 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Keyed on the source, every shared header (``csrc/*.cuh``) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
-    for fname in [f"{name}.cu", *headers]:
+    """Keyed on the source, every shared header (``csrc/*.cuh``; none for a
+    host library) and the flags."""
+    if name in HOST_SOURCES:
+        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+        sources = [f"{name}.cpp"]
+    else:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        sources = [f"{name}.cu", *sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))]
+    for fname in sources:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
-    """Compile every listed source that has no up-to-date library, all nvcc
-    processes started together; raise with the compiler output on failure.
-    Returns ``{name: library path}``.  The ptxas report (registers, shared
-    memory, spills) lands beside each library as ``.log``."""
+    """Compile every listed source that has no up-to-date library, all
+    compiler processes started together; raise with the compiler output on
+    failure.  Returns ``{name: library path}``.  The compiler's report (for a
+    kernel, ptxas's registers, shared memory and spills) lands beside each
+    library as ``.log``."""
     names = list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
@@ -90,10 +127,15 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
         path = library_path(name)
         if os.path.exists(path):
             continue
-        nvcc = nvcc_path()  # raises before a temporary file exists
+        if name in HOST_SOURCES:  # the compiler is found before a temporary file exists
+            head = [gxx_path(), *GXX_FLAGS]
+            src = os.path.join(CSRC, f"{name}.cpp")
+        else:
+            head = [nvcc_path(), *NVCC_FLAGS]
+            src = os.path.join(CSRC, f"{name}.cu")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [*head, "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, path)
     failures = []
@@ -103,7 +145,8 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
             f.write(log)
         if proc.returncode != 0:
             os.unlink(tmp)
-            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            failures.append(f"{os.path.basename(proc.args[0])} failed for {name} "
+                            f"(exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, path)
     if failures:
@@ -119,16 +162,18 @@ def load(name: str) -> ctypes.CDLL:
     """Build if needed, load, and declare the entry points' signatures.  Only
     a miss takes the lock: a thread that calls during the first build (the
     HTTP service runs each request on its own thread) waits for it instead
-    of running nvcc again, and a loaded library is read without the lock."""
+    of compiling again, and a loaded library is read without the lock."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
     with _LOAD_LOCK:
         if name not in _LOADED:
             lib = ctypes.CDLL(build((name,))[name])
-            for fn_name, argtypes in (SIGNATURES[name], *EXTRA_ENTRIES.get(name, ())):
+            entries = HOST_ENTRIES.get(name) or [
+                (*entry, _I) for entry in (SIGNATURES[name], *EXTRA_ENTRIES.get(name, ()))]
+            for fn_name, argtypes, restype in entries:
                 fn = getattr(lib, fn_name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             _LOADED[name] = lib
         return _LOADED[name]

@@ -55,10 +55,17 @@ def augment_features_db(features_db: torch.Tensor, generator: Optional[torch.Gen
 
 
 def augment_audio(audio: torch.Tensor, generator: Optional[torch.Generator] = None,
-                  gain_from: float = 0.6, gain_to: float = 1.4) -> torch.Tensor:
+                  gain_from: float = 0.6, gain_to: float = 1.4, axis=None) -> torch.Tensor:
     """Waveform-domain random gain (reference data/dataset.py:164-168); one
-    gain per leading batch element."""
-    return audio * _uniform(audio.shape[:-1], generator, audio, gain_from, gain_to)[..., None]
+    gain per leading batch element.  With ``axis`` (a ``MeshAxis`` whose
+    ranks hold the global batch in rank order) the gains of the whole global
+    batch are drawn and this rank takes its rows, so the ranks together draw
+    what one process does on the global batch."""
+    if axis is None or axis.size == 1:
+        return audio * _uniform(audio.shape[:-1], generator, audio, gain_from, gain_to)[..., None]
+    shape = (audio.shape[0] * axis.size, *audio.shape[1:-1])
+    gains = _uniform(shape, generator, audio, gain_from, gain_to)[axis.rows(shape[0])]
+    return audio * gains[..., None]
 
 
 def stereo_to_mono(audio: torch.Tensor, channel_axis: int = -2) -> torch.Tensor:

@@ -21,8 +21,15 @@ of the model's device (``nn.Dropout`` takes none); seed it with
 ``torch.manual_seed`` for a reproducible run.  Neither stream can match JAX's
 bit for bit.
 
-The ``mesh`` / ``dp_axis`` / ``sp_axis`` arguments of the JAX steps wait for
-the port's parallelism (ROADMAP.md item 15).
+Data parallelism.  A step built with ``mesh`` (tpumix_torch/parallel/mesh.py)
+runs on each rank of the mesh's ``dp_axis`` with that rank's rows of the
+global batch and reduces wherever the JAX step, under GSPMD, reduces over the
+global batch: BatchNorm normalises over it, the gradients are averaged, the
+``coherent`` denominator and ``lstsq_tail_cm``'s common mode are global
+means, augmentation draws the global batch's gains, and ``loss`` and
+``mean_gain`` are global means.  So an N-rank step is the one-process step on
+the global batch, up to the order of float32 sums.  Dropout stays per rank.
+``sp_axis`` (frame-axis sharding) is not ported.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ import torch.nn as nn
 
 from tpumix_torch.config import FrontendConfig
 from tpumix_torch.infer.mixer import _dequantize_on_device
+from tpumix_torch.models.blocks import use_global_batchnorm
 from tpumix_torch.ops.gain import augment_audio
 from tpumix_torch.ops.stft import spectrogram_features
+from tpumix_torch.parallel.mesh import MeshAxis, average_gradients
 
 _LN10 = 2.302585092994046
 
@@ -140,24 +149,54 @@ def make_frontend_fn(frontend: FrontendConfig) -> Callable:
     return _features
 
 
-def _gain_loss_backward_update(state: TrainState, feats: torch.Tensor,
-                               loss_of: Callable) -> Dict[str, torch.Tensor]:
+def _dp(mesh, dp_axis: Optional[str], sp_axis: Optional[str] = None,
+        model: Optional[nn.Module] = None) -> Optional[MeshAxis]:
+    """The mesh's data-parallel axis (None without a mesh).  For a train step
+    (``model`` given) its BatchNorm layers normalise over that axis's global
+    batch from here on."""
+    if sp_axis is not None:
+        raise NotImplementedError(
+            f"sp_axis={sp_axis!r}: frame-axis sharding (a tensor-parallel convolution "
+            "with a halo exchange) is not ported; see ROADMAP.md item 15")
+    if mesh is None or dp_axis is None:
+        return None
+    axis = mesh.axis(dp_axis)
+    if model is not None:
+        use_global_batchnorm(model, axis)
+    return axis
+
+
+def _global_mean(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
+    """The mean over the global batch of a per-rank mean over equal shards,
+    as data (no autograd)."""
+    return x if axis is None else axis.mean(x)
+
+
+def _gain_loss_backward_update(state: TrainState, feats: torch.Tensor, loss_of: Callable,
+                               axis: Optional[MeshAxis] = None) -> Dict[str, torch.Tensor]:
     """Shared tail of every train step: forward in training mode, the loss
-    from ``loss_of(model, feats) -> (value, gains)``, backward, one update."""
+    from ``loss_of(model, feats) -> (value, gains)``, backward, the gradients
+    averaged over ``axis``, one update; metrics are global means."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     value, gains = loss_of(state.model, feats)
     value.backward()
+    if axis is not None:
+        average_gradients(state.model.parameters(), axis)
     _apply_update(state)
-    return {"loss": value.detach(), "mean_gain": gains.detach().mean()}
+    return {"loss": _global_mean(value.detach(), axis),
+            "mean_gain": _global_mean(gains.detach().mean(), axis)}
 
 
-def make_gain_train_step(state: TrainState, frontend: FrontendConfig) -> Callable:
+def make_gain_train_step(state: TrainState, frontend: FrontendConfig, mesh=None,
+                         dp_axis: Optional[str] = "dp") -> Callable:
     """Label-supervised train step for generators that know the true gains:
     ``(stems [B,4,S], g_true [B,4], generator) -> metrics`` with ``loss =
     MSE(predicted_gains, g_true)`` in the model-scalar domain.  No reference
-    analogue: the reference's corpora carry no gain labels."""
+    analogue: the reference's corpora carry no gain labels.  ``mesh``: see
+    the module docstring."""
     _features = make_frontend_fn(frontend)
+    axis = _dp(mesh, dp_axis, model=state.model)
 
     def step(stems: torch.Tensor, g_true: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -168,7 +207,7 @@ def make_gain_train_step(state: TrainState, frontend: FrontendConfig) -> Callabl
             gains = model.gains(feats)
             return torch.mean(torch.square(gains - g_true)), gains
 
-        metrics = _gain_loss_backward_update(state, feats, loss_of)
+        metrics = _gain_loss_backward_update(state, feats, loss_of, axis)
         # gain RMS error in true dB (scalar domain x10) is the interpretable metric
         metrics["gain_rmse_db"] = 10.0 * torch.sqrt(metrics["loss"])
         return metrics
@@ -176,16 +215,18 @@ def make_gain_train_step(state: TrainState, frontend: FrontendConfig) -> Callabl
     return step
 
 
-def make_gain_eval_step(state: TrainState, frontend: FrontendConfig) -> Callable:
+def make_gain_eval_step(state: TrainState, frontend: FrontendConfig, mesh=None,
+                        dp_axis: Optional[str] = "dp") -> Callable:
     """Eval twin of :func:`make_gain_train_step` (running BN stats, no
-    dropout): ``(stems, g_true) -> loss``."""
+    dropout): ``(stems, g_true) -> loss``, with ``mesh`` the global batch's."""
     _features = make_frontend_fn(frontend)
+    axis = _dp(mesh, dp_axis)
 
     @torch.no_grad()
     def step(stems: torch.Tensor, g_true: torch.Tensor) -> torch.Tensor:
         state.model.eval()
         gains = state.model.gains(_features(_dequantize_on_device(stems)))
-        return torch.mean(torch.square(gains - g_true))
+        return _global_mean(torch.mean(torch.square(gains - g_true)), axis)
 
     return step
 
@@ -297,29 +338,34 @@ def _lstsq_tail_gain_targets(stems: torch.Tensor, mix: torch.Tensor, n_taps: int
     return _amp_to_gain(amp)
 
 
-def _coherent_loss(stems: torch.Tensor, mix: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
+def _coherent_loss(stems: torch.Tensor, mix: torch.Tensor, gains: torch.Tensor,
+                   axis: Optional[MeshAxis] = None) -> torch.Tensor:
     """Waveform-domain self-supervision: predicted gains through the
     reference inference map scale the stem WAVEFORMS; the coherent sum must
-    reproduce the mix.  Normalised by mix power.  ONE definition shared by
-    train and eval steps so early stopping judges exactly the objective
+    reproduce the mix.  Normalised by mix power, the global batch's with
+    ``axis`` (it does not depend on the parameters).  ONE definition shared
+    by train and eval steps so early stopping judges exactly the objective
     training optimised."""
     amp = torch.pow(10.0, 0.5 * gains)  # [B, S]
     mix_pred = torch.einsum("bst,bs->bt", stems, amp)
-    return torch.mean(torch.square(mix_pred - mix)) / (torch.mean(torch.square(mix)) + 1e-8)
+    power = _global_mean(torch.mean(torch.square(mix)), axis)
+    return torch.mean(torch.square(mix_pred - mix)) / (power + 1e-8)
 
 
 def _lstsq_loss(stems: torch.Tensor, mix: torch.Tensor, gains: torch.Tensor,
-                tail: bool = False, recenter_cm: bool = False) -> torch.Tensor:
+                tail: bool = False, recenter_cm: bool = False,
+                axis: Optional[MeshAxis] = None) -> torch.Tensor:
     """MSE against the closed-form per-item gain targets (shared by train
     and eval; the targets are data, computed without a graph).  ``tail=True``
     selects the tail-robust solve; ``recenter_cm=True`` replaces each item's
-    common mode (mean over stems) with the batch mean."""
+    common mode (mean over stems) with the batch mean, the global batch's
+    with ``axis``."""
     with torch.no_grad():
         targets = _lstsq_tail_gain_targets if tail else _lstsq_gain_targets
         g_star = targets(stems, mix)
         if recenter_cm:
             cm = torch.mean(g_star, dim=1, keepdim=True)  # [B, 1]
-            g_star = g_star - cm + torch.mean(cm)
+            g_star = g_star - cm + _global_mean(torch.mean(cm), axis)
     return torch.mean(torch.square(gains - g_star))
 
 
@@ -333,20 +379,22 @@ def _check_loss(loss: str) -> None:
         )
 
 
-def _objective(loss: str, frontend: FrontendConfig, _features: Callable) -> Callable:
+def _objective(loss: str, frontend: FrontendConfig, _features: Callable,
+               axis: Optional[MeshAxis] = None) -> Callable:
     """``(model, feats, stems, mix) -> (loss value, gains)`` for one of
     :data:`SELF_SUPERVISED_LOSSES`; one definition behind the train and the
-    eval step.  The waveform-domain objectives never compute the mix's
-    spectrogram."""
+    eval step.  The value is this rank's mean, its global statistics those of
+    ``axis``'s global batch.  The waveform-domain objectives never compute
+    the mix's spectrogram."""
 
     def objective(model, feats, stems, mix):
         if loss == "coherent":
             gains = model.gains(feats)
-            return _coherent_loss(stems, mix, gains), gains
+            return _coherent_loss(stems, mix, gains, axis), gains
         if _is_lstsq(loss):
             gains = model.gains(feats)
             return _lstsq_loss(stems, mix, gains, tail=loss != "lstsq",
-                               recenter_cm=loss == "lstsq_tail_cm"), gains
+                               recenter_cm=loss == "lstsq_tail_cm", axis=axis), gains
         with torch.no_grad():
             gt = _features(mix)
         if loss == "roundtrip":
@@ -360,7 +408,8 @@ def _objective(loss: str, frontend: FrontendConfig, _features: Callable) -> Call
 
 
 def make_train_step(state: TrainState, frontend: FrontendConfig, augment: bool = False,
-                    augment_mix: bool = True, loss: str = "reference") -> Callable:
+                    augment_mix: bool = True, loss: str = "reference", mesh=None,
+                    dp_axis: Optional[str] = "dp", sp_axis: Optional[str] = None) -> Callable:
     """Build the waveform-in train step: ``(stems [B,4,S], mix [B,S],
     generator) -> metrics`` (``loss`` and ``mean_gain`` as device scalars);
     it updates ``state`` in place.
@@ -374,10 +423,15 @@ def make_train_step(state: TrainState, frontend: FrontendConfig, augment: bool =
     and the mix spectrogram (reference model_trainer.py:25-44);
     ``"roundtrip"`` — the same through :func:`_roundtrip_masked_db`;
     ``"coherent"``, ``"lstsq"``, ``"lstsq_tail"``, ``"lstsq_tail_cm"`` — the
-    waveform-domain objectives above."""
+    waveform-domain objectives above.
+
+    ``mesh``: the step runs on each rank of its ``dp_axis`` with that rank's
+    rows of the global batch (module docstring); ``sp_axis`` raises
+    ``NotImplementedError``."""
     _check_loss(loss)
+    axis = _dp(mesh, dp_axis, sp_axis, model=state.model)
     _features = make_frontend_fn(frontend)
-    objective = _objective(loss, frontend, _features)
+    objective = _objective(loss, frontend, _features, axis)
 
     def step(stems: torch.Tensor, mix: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -389,26 +443,27 @@ def make_train_step(state: TrainState, frontend: FrontendConfig, augment: bool =
             if augment:
                 # independent random gains per (batch, stem) and, with
                 # augment_mix, per batch item for the mix
-                stems = augment_audio(stems, generator)
+                stems = augment_audio(stems, generator, axis=axis)
                 if augment_mix:
-                    mix = augment_audio(mix, generator)
+                    mix = augment_audio(mix, generator, axis=axis)
             feats = _features(stems)  # [B, 4, F, T]
         return _gain_loss_backward_update(
-            state, feats, lambda model, feats: objective(model, feats, stems, mix))
+            state, feats, lambda model, feats: objective(model, feats, stems, mix), axis)
 
     return step
 
 
-def make_eval_step(state: TrainState, frontend: FrontendConfig,
-                   loss: str = "reference") -> Callable:
+def make_eval_step(state: TrainState, frontend: FrontendConfig, loss: str = "reference",
+                   mesh=None, dp_axis: Optional[str] = "dp") -> Callable:
     """Eval step: ``(stems, mix) -> loss`` with running BN stats and no
     dropout (reference _validate_epoch, model_trainer.py:14-23); it changes
     nothing in ``state``.  Features come from the SAME frontend factory as
     :func:`make_train_step`, so early stopping judges exactly the features
-    training saw."""
+    training saw.  With ``mesh`` the loss is the global batch's."""
     _check_loss(loss)
+    axis = _dp(mesh, dp_axis)
     _features = make_frontend_fn(frontend)
-    objective = _objective(loss, frontend, _features)
+    objective = _objective(loss, frontend, _features, axis)
 
     @torch.no_grad()
     def step(stems: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
@@ -416,7 +471,7 @@ def make_eval_step(state: TrainState, frontend: FrontendConfig,
         stems = _dequantize_on_device(stems)
         mix = _dequantize_on_device(mix)
         value, _ = objective(state.model, _features(stems), stems, mix)
-        return value
+        return _global_mean(value, axis)
 
     return step
 

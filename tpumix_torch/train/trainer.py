@@ -17,10 +17,19 @@ reads no file.  A checkpoint is the directory ``epoch_NNNN`` holding one
 ``torch.save`` file of model, optimizer and update count; it is written under
 a temporary name and renamed into place, so a kill mid-save leaves only
 something ``resume`` recognises and sweeps.
+
+Data parallelism (tpumix/train/trainer.py:83-165): with a ``mesh`` (or a
+process group and ``TrainConfig.mesh_shape``) every rank runs the trainer on
+its own device with its rows of each global batch; the parameters start as
+rank 0's, the steps reduce over the global batch
+(tpumix_torch/train/state.py), the validation loss is the global mean, so
+every rank decides early stopping alike, and only rank 0 prints and writes
+checkpoints, ``scores.json``, ``metrics.csv`` and the plot.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import datetime
@@ -35,11 +44,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpumix_torch.config import FrontendConfig, TrainConfig
 from tpumix_torch.data.prefetch import prefetch_to_device
-from tpumix_torch.data.synthetic import synth_chunk_batch
+from tpumix_torch.data.synthetic import synth_draws, synth_render
 from tpumix_torch.infer.mixer import _mulaw_lut
+from tpumix_torch.parallel.distributed import process_index
+from tpumix_torch.parallel.mesh import broadcast_module, make_mesh
 from tpumix_torch.train.state import (
     _check_loss,
     cosine_decay_schedule,
@@ -85,6 +97,12 @@ class Trainer:
         it is moved to ``device`` in ``channels_last``.
     :param device: ``None`` = ``cuda`` (raises without a card); ``"cpu"`` runs
         the frontends' plain versions.
+    :param mesh: a ``tpumix_torch.parallel.Mesh`` whose ``dp`` axis splits
+        each global batch over the ranks; the loaders then yield each rank's
+        rows (``BatchIterator(num_shards=, shard_index=)``,
+        ``DeviceCorpusIterator(num_shards=, shard_index=)``).  None: the mesh
+        of ``config.mesh_shape`` when a process group is active or that shape
+        has more than one rank, else none.
     """
 
     # label-supervised loss="gain" needs generator labels; only
@@ -92,12 +110,19 @@ class Trainer:
     _supports_gain_loss = False
 
     def __init__(self, model: torch.nn.Module, frontend: FrontendConfig, config: TrainConfig,
-                 run_name: Optional[str] = None, device=None):
+                 run_name: Optional[str] = None, device=None, mesh=None):
         self.device = resolve_device(device)
         # full f32 on the card: cuDNN would otherwise run every convolution,
         # forward and backward, in TF32 (utils.device.disable_tf32)
         disable_tf32()
         self.model = model.to(self.device, memory_format=torch.channels_last)
+        if mesh is None and (dist.is_initialized() or int(np.prod(config.mesh_shape)) > 1):
+            mesh = make_mesh(config.mesh_shape, config.mesh_axis_names)
+        self.mesh = mesh
+        #: the rank that prints and writes (rank 0; the only one without a mesh)
+        self.is_main = process_index() == 0
+        if mesh is not None:
+            broadcast_module(self.model)  # every rank starts from rank 0's
         self.frontend = frontend
         self.config = config
         self.patience = resolve_patience(config.early_stopping_patience, config.loss)
@@ -134,9 +159,9 @@ class Trainer:
         else:
             self._train_step = make_train_step(
                 self.state, frontend, augment=config.augment,
-                augment_mix=config.augment_mix, loss=config.loss,
+                augment_mix=config.augment_mix, loss=config.loss, mesh=mesh,
             )
-            self._eval_step = make_eval_step(self.state, frontend, loss=config.loss)
+            self._eval_step = make_eval_step(self.state, frontend, loss=config.loss, mesh=mesh)
         # augmentation's random stream, on the device (tpumix: key(seed + 1))
         self._generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
 
@@ -157,7 +182,10 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int, score: float) -> None:
         """Save; score convention follows ignite's ``-train_mse`` (higher is
-        better).  With keep_checkpoints=k, only the top-k scored survive."""
+        better).  With keep_checkpoints=k, only the top-k scored survive.
+        Only rank 0 writes (every rank holds the same state)."""
+        if not self.is_main:
+            return
         final = self._ckpt_path(epoch)
         tmp = f"{final}{_TMP_MARK}{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -198,7 +226,7 @@ class Trainer:
         any) and return the epoch to continue from (0 when starting fresh)."""
         # sweep half-written checkpoint staging dirs (see latest_epoch): they
         # hold no restorable state
-        if os.path.isdir(self.ckpt_dir):
+        if self.is_main and os.path.isdir(self.ckpt_dir):
             for d in os.listdir(self.ckpt_dir):
                 if re.fullmatch(r"epoch_\d+" + re.escape(_TMP_MARK) + r".*", d):
                     print(f"[resume] sweeping half-written checkpoint {d}")
@@ -217,7 +245,7 @@ class Trainer:
             self._scores = {
                 ep: s for ep, s in self._scores.items() if os.path.isdir(self._ckpt_path(ep))
             }
-        print(f"[resume] restored epoch {latest} from {self.ckpt_dir}")
+        self._print(f"[resume] restored epoch {latest} from {self.ckpt_dir}")
         return latest + 1
 
     def restore_checkpoint(self, epoch: int) -> None:
@@ -274,14 +302,19 @@ class Trainer:
             losses.append(metrics["loss"])
             i += 1
             if i % self.config.log_every_steps == 0:
-                print(f"  [{i}/{len(loader)}] loss: {float(metrics['loss']):.4f}")
+                self._print(f"  [{i}/{len(loader)}] loss: {float(metrics['loss']):.4f}")
         mean = float(torch.stack(losses).mean()) if losses else 0.0  # waits for the device
         self.last_epoch_stats = {"steps": i, "wall_s": time.perf_counter() - tic,
                                  "host_wait_s": waited}
         return mean
 
+    def _print(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
+
     def _run_val_epoch(self, loader) -> float:
-        # device scalars accumulated and forced ONCE at epoch end
+        # device scalars accumulated and forced ONCE at epoch end; each is
+        # the global batch's loss under a mesh (the eval step reduces it)
         losses = []
         for stems, mix in loader:
             losses.append(self._eval_step(torch.as_tensor(stems).to(self.device),
@@ -303,9 +336,11 @@ class Trainer:
         bad_epochs = 0
         stopped = False
 
-        with open(self._metrics_path, "a", newline="") as f:
-            writer = csv.writer(f)
-            if f.tell() == 0:
+        # only rank 0 keeps the CSV ledger
+        with (open(self._metrics_path, "a", newline="") if self.is_main
+              else contextlib.nullcontext()) as f:
+            writer = csv.writer(f) if f is not None else None
+            if writer is not None and f.tell() == 0:
                 writer.writerow(["epoch", "train_loss", "val_loss", "seconds"])
 
             for epoch in range(start_epoch, end_epoch):
@@ -316,13 +351,15 @@ class Trainer:
                 train_hist.append(train_loss)
                 val_hist.append(val_loss)
                 stats = self.last_epoch_stats
-                print(
+                self._print(
                     f"Epoch {epoch}: train {train_loss:.4f}  val {val_loss:.4f}  ({dt:.1f}s; "
                     f"{stats['steps']} train steps in {stats['wall_s']:.2f}s, "
                     f"{stats['host_wait_s']:.2f}s of it waiting on the loader)"
                 )
-                writer.writerow([epoch, f"{train_loss:.6f}", f"{val_loss:.6f}", f"{dt:.2f}"])
-                f.flush()
+                if writer is not None:
+                    writer.writerow([epoch, f"{train_loss:.6f}", f"{val_loss:.6f}",
+                                     f"{dt:.2f}"])
+                    f.flush()
 
                 # ignite parity scores by -train_mse; "val" keeps the best
                 # VALIDATION epochs instead (what an exported inference
@@ -336,7 +373,7 @@ class Trainer:
                 else:
                     bad_epochs += 1
                     if bad_epochs >= self.patience:
-                        print(f"Early stopping at epoch {epoch} (patience exhausted)")
+                        self._print(f"Early stopping at epoch {epoch} (patience exhausted)")
                         stopped = True
                         break
 
@@ -346,7 +383,7 @@ class Trainer:
     def plot_loss_curves(self, train_hist: List[float], val_hist: List[float]) -> Optional[str]:
         """Loss-curve PNG in the run dir (parity: reference
         training_ignite.ipynb cell 16 / training.ipynb cell 17)."""
-        if not train_hist:
+        if not train_hist or not self.is_main:
             return None
         try:
             import matplotlib
@@ -411,27 +448,34 @@ class SyntheticTrainer(Trainer):
                  chunk_samples: int, sr: int = 44100, run_name: Optional[str] = None,
                  device=None, val_batches: int = 4, context_mult: int = 4,
                  level_shift_db: Optional[Tuple[float, float]] = (-14.0, 2.0),
-                 mix_bus_kind: Optional[str] = None):
+                 mix_bus_kind: Optional[str] = None, mesh=None):
         """``context_mult``: generator context in chunks (levels and labels
         are context-global, the model sees one random window; 1 = the
         per-chunk task).  ``level_shift_db``: range of the shared per-item
         level shift (labels shift-compensated); None disables it.
         ``mix_bus_kind``: ``synthetic.mix_bus`` on the generated reference mix
-        (stresses the (stems, mix) objectives; gain labels stay clean)."""
-        super().__init__(model, frontend, config, run_name=run_name, device=device)
+        (stresses the (stems, mix) objectives; gain labels stay clean).
+        ``mesh``: as :class:`Trainer`; ``config.batch_size`` is then the
+        global batch, whose draws every rank makes and whose rows it renders."""
+        super().__init__(model, frontend, config, run_name=run_name, device=device, mesh=mesh)
         self.supervised = config.loss == "gain"
         if self.supervised:
-            self._train_step = make_gain_train_step(self.state, frontend)
-            self._eval_step = make_gain_eval_step(self.state, frontend)
+            self._train_step = make_gain_train_step(self.state, frontend, mesh=self.mesh)
+            self._eval_step = make_gain_eval_step(self.state, frontend, mesh=self.mesh)
         self.val_batches = val_batches
-        self._gen_kw = dict(n=chunk_samples, sr=sr, return_gains=self.supervised,
-                            context_mult=context_mult, level_shift_db=level_shift_db,
-                            mix_bus_kind=mix_bus_kind)
+        self._draw_kw = dict(n=chunk_samples, context_mult=context_mult,
+                             level_shift_db=level_shift_db)
+        self._render_kw = dict(sr=sr, return_gains=self.supervised, mix_bus_kind=mix_bus_kind)
+        self._rows = (slice(None) if self.mesh is None
+                      else self.mesh.axis("dp").rows(config.batch_size))
 
     def _generate(self, generator: torch.Generator):
         """``(stems, supervision target)`` for the configured objective: the
-        gain labels for ``"gain"``, the reference mix otherwise."""
-        out = synth_chunk_batch(generator, self.config.batch_size, **self._gen_kw)
+        gain labels for ``"gain"``, the reference mix otherwise; this rank's
+        rows of the global batch."""
+        draws = synth_draws(generator, self.config.batch_size, **self._draw_kw)
+        draws = {k: v[self._rows] if torch.is_tensor(v) else v for k, v in draws.items()}
+        out = synth_render(draws, **self._render_kw)
         return (out[0], out[2]) if self.supervised else out
 
     def _run_train_epoch(self, steps) -> float:
@@ -443,7 +487,7 @@ class SyntheticTrainer(Trainer):
             metrics = self._train_step(*self._generate(generator), generator)
             losses.append(metrics["loss"])
             if (i + 1) % self.config.log_every_steps == 0:
-                print(f"  [{i + 1}/{steps}] loss: {float(metrics['loss']):.4f}", flush=True)
+                self._print(f"  [{i + 1}/{steps}] loss: {float(metrics['loss']):.4f}")
         mean = float(torch.stack(losses).mean()) if losses else 0.0  # waits for the device
         self.last_epoch_stats = {"steps": steps, "wall_s": time.perf_counter() - tic,
                                  "host_wait_s": 0.0}
