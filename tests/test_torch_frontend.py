@@ -141,17 +141,17 @@ def test_dispatch_and_layouts(audio):
                                   (0.5 - 0.5 * np.cos(2 * np.pi * k / 2048)).astype(np.float32))
 
 
-def test_unported_frontends_raise_on_cuda():
+def test_every_jax_frontend_spelling_resolves():
     # hop 64: DIF does not apply; the DIT kernel (K4) takes it, as the JAX
-    # package's does on a TPU.  What still raises, on every device, are the
-    # XLA-level formulations (ROADMAP.md item 16).
+    # package's does on a TPU.  The XLA-level formulations "matmul" and "ct"
+    # resolve to themselves on every device and "auto" never picks them.
     cfg = FrontendConfig(hop_length=64)
     assert not dif_applicable(cfg) and dif_applicable(FrontendConfig(hop_length=256))
     assert cfg.resolved_implementation() == "ct_pallas"
     assert FrontendConfig(hop_length=500).resolved_implementation() == "fft"
     assert FrontendConfig(implementation="ct_pallas").resolved_implementation() == "ct_pallas"
     for impl in ("matmul", "ct"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FrontendConfig(implementation=impl).resolved_implementation()
+        assert FrontendConfig(implementation=impl).resolved_implementation() == impl
+        assert FrontendConfig(hop_length=500, implementation=impl).resolved_implementation() == impl
     with pytest.raises(ValueError):
         stft_features_dif(torch.zeros(4096), FrontendConfig(hop_length=500))

@@ -176,14 +176,20 @@ def test_auto_resolves_in_the_jax_tpu_order(hop):
                         512: "dif_pallas", 1024: "dif_pallas"}[hop]
 
 
-def test_spellings_and_unported_formulations():
-    for impl in ("dif_pallas", "ct_pallas", "pallas", "fft"):  # tpumix's own names
+def test_spellings_and_formulations():
+    # tpumix's own names, the XLA-level formulations included
+    for impl in ("dif_pallas", "ct_pallas", "pallas", "fft", "matmul", "ct"):
         assert FrontendConfig(hop_length=512, implementation=impl).resolved_implementation() == impl
+        assert (JaxFrontendConfig(hop_length=512, implementation=impl).resolved_implementation()
+                == impl)
     assert FrontendConfig(hop_length=512, implementation="dif").resolved_implementation() == "dif_pallas"
     assert FrontendConfig(hop_length=500).resolved_implementation() == "fft"
+    # "matmul" and "ct" are reached by the train step's differentiable frontend
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32))
     for impl in ("matmul", "ct"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FrontendConfig(implementation=impl).resolved_implementation()
+        cfg = FrontendConfig(n_fft=256, hop_length=128, implementation=impl)
+        np.testing.assert_array_equal(make_frontend_fn(cfg)(x).numpy(),
+                                      spectrogram_features(x, cfg).numpy())
     with pytest.raises(ValueError, match="unknown frontend"):
         FrontendConfig(implementation="cufft").resolved_implementation()
     with pytest.raises(ValueError, match="ct_applicable"):

@@ -21,6 +21,17 @@ tests/test_infer_device.py:155 hold tpumix's sharded paths:
   running statistics within 1e-4 of their scale, flax's biased variance;
 * the chunk-sharded mixer: gains within 1e-4, the device mix within rtol
   1e-4 / atol 1e-5.
+
+The frame-sharded step (``sp_axis``, tpumix_torch/parallel/frames.py): a
+``(1, 2)`` ``dp x sp`` mesh in the two-rank launch and a ``(2, 2)`` mesh in
+one launch of four ranks, at 0.8 s chunks (51 frames, three conv5 frames),
+every objective of the step, two steps against one process on the same
+global batches.  Step 1: loss 1e-5 relative, mean gain 1e-5 absolute, BN
+running statistics 1e-5 of their scale (one order of float32 sums against
+another; measured 1e-6 / 7e-7 / 4.2e-6), the parameters as above; step 2
+after Adam's first update: the loss within 2e-2 relative (chip_smoke.py
+[dp]'s drift bound; measured at most 1.7e-4).  The ``(1, 2)`` step's loss
+against the JAX step with ``sp_axis="sp"`` on a ``(1, 2)`` CPU mesh: 2e-4.
 """
 
 import dataclasses
@@ -48,15 +59,16 @@ import torch_parallel_ranks as ranks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
+SP_RANKS = 4  # the (2, 2) dp x sp mesh
 TIMEOUT_S = 240
 
 
-def _launch(argv_of_rank, tmp, timeout=TIMEOUT_S):
+def _launch(argv_of_rank, tmp, timeout=TIMEOUT_S, ranks_=RANKS):
     """Start one process per rank and wait for all, killing every one that
     outlives ``timeout``: a hung rank fails the test."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.path.join(ROOT, "tests"))
     procs = [subprocess.Popen(argv_of_rank(r), cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+                              stderr=subprocess.STDOUT, text=True) for r in range(ranks_)]
     outs = []
     try:
         for p in procs:
@@ -92,12 +104,49 @@ def init_state():
 
 
 @pytest.fixture(scope="module")
-def results(init_state, tmp_path_factory):
+def init_sp():
+    """The frame-sharded step's initialisation: scalar1s on ``SP_FT``."""
+    model = build_model(dataclasses.replace(preset("scalar1s"), use_dropout=False,
+                                            bn_momentum=0.99),
+                        in_shape=ranks.SP_FT, for_training=True,
+                        generator=torch.Generator().manual_seed(1))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def _one_thread(fn, *args):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def sp_solo(init_sp):
+    """The frame-sharded paths' one-process references."""
+    return _one_thread(ranks.sp_step_results, None, init_sp)
+
+
+@pytest.fixture(scope="module")
+def sp22(init_sp, tmp_path_factory):
+    """Four gloo ranks on a ``(2, 2)`` ``dp x sp`` mesh: their results."""
+    tmp = tmp_path_factory.mktemp("sp")
+    torch.save(init_sp, tmp / "init_sp.pt")
+    rdv = "file://" + str(tmp / "rendezvous")
+    _launch(lambda r: [sys.executable, os.path.join(ROOT, "tests", "torch_parallel_ranks.py"),
+                       str(r), str(SP_RANKS), rdv, str(tmp), "sp"], tmp, ranks_=SP_RANKS)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(SP_RANKS)]
+
+
+@pytest.fixture(scope="module")
+def results(init_state, init_sp, tmp_path_factory):
     """``(rank results, one-process results)``: one launch of two gloo ranks
     for every in-process path, and the same calls here with no mesh."""
     tmp = tmp_path_factory.mktemp("dp")
     init = init_state[0]
     torch.save(init, tmp / "init.pt")
+    torch.save(init_sp, tmp / "init_sp.pt")
     rdv = "file://" + str(tmp / "rendezvous")
     _launch(lambda r: [sys.executable, os.path.join(ROOT, "tests", "torch_parallel_ranks.py"),
                        str(r), str(RANKS), rdv, str(tmp)], tmp)
@@ -185,12 +234,49 @@ def test_rank_rows_and_global_augmentation_draws():
     assert torch.equal(whole[4:], mine)
 
 
-def test_sp_axis_raises_naming_the_roadmap_item(init_state):
+def test_sp_axis_builds_only_on_a_mesh_with_a_frame_sharded_trunk(init_state):
+    """``sp_axis`` wants a mesh that has the axis and a scalar trunk; the
+    shard of the full ``scalar2s`` input is the recompute the design
+    accepts (two ranks: 111 and 109 of 173 feature frames)."""
+    from tpumix_torch.models.resnet import GainResNet
     from tpumix_torch.train.state import create_train_state, make_train_step
 
     state = create_train_state(ranks.model(init_state[0]), ranks.LR, ranks.WD)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_train_step(state, ranks.frontend(), sp_axis="sp")
+    with pytest.raises(ValueError, match="no axis 'sp'"):
         make_train_step(state, ranks.frontend(), mesh=port_mesh.make_mesh(), sp_axis="sp")
+    resnet = create_train_state(GainResNet(in_shape=(129, 47)), ranks.LR, ranks.WD)
+    with pytest.raises(ValueError, match="no frame-sharded trunk"):
+        make_train_step(resnet, ranks.frontend(), mesh=port_mesh.make_mesh(), sp_axis="dp")
+    model = build_model(preset("scalar2s"))
+    spans = [model.frame_shard(173, port_mesh.MeshAxis("sp", 2, r)).features for r in range(2)]
+    assert spans == [(0, 111), (64, 173)]
+    assert [model.frame_shard(173, port_mesh.MeshAxis("sp", 1, 0)).features] == [(0, 173)]
+    with pytest.raises(ValueError, match="fewer than"):
+        build_model(preset("scalar1s")).frame_shard(47, port_mesh.MeshAxis("sp", 2, 0))
+
+
+@pytest.mark.parametrize("size", [2, 3, 5])
+@pytest.mark.parametrize("name,frames", [("scalar1s", 87), ("scalar2s", 173), ("scalar2s", 60)])
+def test_frame_shards_partition_every_layer(name, frames, size):
+    """At every layer the ranks' owned frames partition the layer, each
+    inside what the rank computes, and a VALID convolution of the computed
+    frames gives exactly the next layer's computed frames."""
+    model = build_model(preset(name))
+    layers = [(3, 2, model.block1_dilation)] + [(k, 1, 1) for k in (5, 5, 7, 9)]
+    shards = [model.frame_shard(frames, port_mesh.MeshAxis("sp", size, r)) for r in range(size)]
+    for i in range(6):
+        ranges = [sh.ranges[i] for sh in shards]
+        width = ranges[0][3]
+        assert ranges[0][0] == 0 and ranges[-1][2] == width
+        for (lo, hi, own, _), nxt in zip(ranges, ranges[1:] + [None]):
+            assert lo < own <= hi <= width
+            if nxt is not None:
+                assert own == nxt[0]
+    for sh in shards:
+        for (k, s, d), (lo, hi, _, _), (lo2, hi2, _, _) in zip(layers, sh.ranges, sh.ranges[1:]):
+            assert lo2 * s == lo and (hi - lo - d * (k - 1) - 1) // s + 1 == hi2 - lo2
 
 
 def test_device_corpus_ranks_gather_their_rows_of_each_global_batch(tmp_path):
@@ -264,6 +350,61 @@ def test_dp_step_matches_the_jax_mesh_step(results, init_state):
     got, _ = results
     np.testing.assert_allclose(got[0]["steps"]["reference"]["loss"], float(metrics["loss"]),
                                rtol=2e-4)
+
+
+def _sp_cases():
+    return [(m, loss) for m in ("1x2", "2x2") for loss, _ in ranks.SP_LOSSES]
+
+
+@pytest.mark.parametrize("mesh,loss", _sp_cases())
+def test_sp_step_equals_one_process_step(results, sp22, sp_solo, mesh, loss):
+    """The frame-sharded step on a ``dp x sp`` mesh against one process on
+    the global batch, every objective: step 1 to float32 reordering, step 2
+    within the drift of Adam's first update."""
+    got = (results[0] if mesh == "1x2" else sp22)
+    for rank in got[1:]:  # every rank reports the same metrics
+        assert rank["sp"][loss]["loss"] == got[0]["sp"][loss]["loss"]
+    have, want = got[0]["sp"][loss], sp_solo[loss]
+    np.testing.assert_allclose(have["loss"][0], want["loss"][0], rtol=1e-5)
+    np.testing.assert_allclose(have["mean_gain"][0], want["mean_gain"][0], rtol=0, atol=1e-5)
+    for key, ref in want["state"].items():
+        if "running_" in key:
+            scale = max(float(ref.abs().max()), 1.0)
+            np.testing.assert_allclose(have["state"][key].numpy(), ref.numpy(), rtol=0,
+                                       atol=1e-5 * scale, err_msg=key)
+    _compare_after_one_step(have["state"], want["state"])
+    np.testing.assert_allclose(have["loss"][1], want["loss"][1], rtol=2e-2)
+
+
+def test_sp_ranks_compute_overlapping_feature_frames(results, sp22):
+    """Each ``sp`` rank computes the feature frames its conv5 columns need:
+    on 51 frames of scalar1s, 49 of them on each rank."""
+    assert [r["sp"]["features"] for r in results[0]] == [(0, 49), (4, 51)]
+    assert [r["sp"]["features"] for r in sp22] == [(0, 49), (4, 51)] * 2
+
+
+def test_sp_step_matches_the_jax_sp_step(results, init_sp):
+    """The port's ``(1, 2)`` ``reference`` step against tpumix's step built
+    with ``sp_axis="sp"`` on a ``(1, 2)`` CPU mesh (features annotated
+    ``P(dp, None, None, sp)``), same parameters and global batch."""
+    from tpumix.parallel.mesh import data_parallel_jit, make_mesh, shard_batch
+
+    jcfg = dataclasses.replace(jax_preset("scalar1s"), use_dropout=False, bn_momentum=0.99)
+    jmodel = jax_build_model(jcfg, for_training=True)
+    tx = jax_state.adam_with_l2(ranks.LR, ranks.WD)
+    variables = jax.tree.map(jnp.asarray, state_dict_to_jax(init_sp))
+    jst = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                               batch_stats=variables["batch_stats"],
+                               opt_state=tx.init(variables["params"]))
+    frontend = JaxFrontendConfig(n_fft=256, hop_length=128, sample_rate=ranks.SR)
+    stems, mix = ranks.batches(n_batches=1, chunk=ranks.SP_CHUNK, seed=1)[0]
+    mesh = make_mesh((1, 2), ("dp", "sp"))
+    step = data_parallel_jit(jax_state.make_train_step(jmodel, frontend, tx, mesh=mesh,
+                                                       dp_axis="dp", sp_axis="sp"),
+                             mesh, donate_state=False)
+    _, metrics = step(jst, *shard_batch((stems, mix), mesh), jax.random.key(3))
+    np.testing.assert_allclose(results[0][0]["sp"]["reference"]["loss"][0],
+                               float(metrics["loss"]), rtol=2e-4)
 
 
 def test_trainer_validation_pass_is_the_global_mean(results):

@@ -1,12 +1,16 @@
 """One rank of the data-parallel checks in tests/test_torch_parallel.py.
 
-    python tests/torch_parallel_ranks.py RANK WORLD INIT_METHOD OUT_DIR
+    python tests/torch_parallel_ranks.py RANK WORLD INIT_METHOD OUT_DIR [MODE]
 
-Joins a gloo group on the CPU, runs every data-parallel path of the port on
-the inputs of tests/test_torch_parallel.py (the same seeds, built here: this
-process imports torch and tpumix_torch only; the initial parameters come from
-``OUT_DIR/init.pt``) and writes what it computed to ``OUT_DIR/rank<RANK>.pt``.
-The test computes the one-process references itself and compares.
+Joins a gloo group on the CPU, runs the port's parallel paths on the inputs
+of tests/test_torch_parallel.py (the same seeds, built here: this process
+imports torch and tpumix_torch only; the initial parameters come from
+``OUT_DIR/init.pt`` and ``OUT_DIR/init_sp.pt``) and writes what it computed
+to ``OUT_DIR/rank<RANK>.pt``.  MODE ``dp`` (the default, two ranks): every
+data-parallel path on a ``(2,)`` mesh, then the frame-sharded train step on
+a ``(1, 2)`` ``dp x sp`` mesh; MODE ``sp`` (four ranks): the frame-sharded
+step on a ``(2, 2)`` mesh.  The test computes the one-process references
+itself and compares.
 """
 
 from __future__ import annotations
@@ -24,6 +28,13 @@ FT = (129, 47)
 LR, WD = 1e-3, 1e-5
 GLOBAL_BATCH = 8
 LOSSES = (("reference", False), ("coherent", True), ("lstsq_tail_cm", False))
+# the frame-sharded step: 0.8 s chunks, 51 frames, so scalar1s keeps three
+# conv5 frames to split over two sp ranks; every objective of the step
+SP_CHUNK = 6400
+SP_FT = (129, 51)
+SP_LOSSES = (("reference", False), ("roundtrip", False), ("coherent", True), ("lstsq", False),
+             ("lstsq_tail", False), ("lstsq_tail_cm", False))
+SP_STEPS = 2
 
 
 def frontend():
@@ -32,11 +43,11 @@ def frontend():
     return FrontendConfig(n_fft=256, hop_length=128, sample_rate=SR)
 
 
-def batches(n_batches=2, bs=GLOBAL_BATCH, seed=0):
-    """Seeded global (stems [bs, 4, CHUNK], mix [bs, CHUNK]) pairs: tones over
+def batches(n_batches=2, bs=GLOBAL_BATCH, seed=0, chunk=CHUNK):
+    """Seeded global (stems [bs, 4, chunk], mix [bs, chunk]) pairs: tones over
     noise, the mix a fixed-gain sum (tests/test_train.py SynthChunks)."""
     rng = np.random.default_rng(seed)
-    t = np.arange(CHUNK) / SR
+    t = np.arange(chunk) / SR
     true_gains = np.array([0.9, 1.1, 0.8, 1.2], np.float32)
     out = []
     for _ in range(n_batches):
@@ -48,14 +59,14 @@ def batches(n_batches=2, bs=GLOBAL_BATCH, seed=0):
     return out
 
 
-def model(init):
+def model(init, in_shape=FT):
     """scalar1s at the small size, dropout off, BN retained fraction 0.99,
     holding the state dict ``init`` (the test's flax initialisation)."""
     from tpumix_torch.config import preset
     from tpumix_torch.models.registry import build_model
 
     cfg = dataclasses.replace(preset("scalar1s"), use_dropout=False, bn_momentum=0.99)
-    m = build_model(cfg, in_shape=FT, for_training=True)
+    m = build_model(cfg, in_shape=in_shape, for_training=True)
     m.load_state_dict(init)
     return m
 
@@ -102,6 +113,37 @@ def step_results(mesh, data, init):
     return out
 
 
+def sp_step_results(mesh, init):
+    """Per objective, from ``init``: ``SP_STEPS`` train steps on the
+    ``SP_CHUNK`` global batches, frame-sharded over ``mesh``'s ``sp`` axis
+    (one process without a mesh): each step's loss and mean gain, the state
+    after the first step and the feature frames this rank computed."""
+    from tpumix_torch.parallel.mesh import data_parallel
+    from tpumix_torch.train.state import create_train_state, make_train_step
+
+    data = batches(n_batches=SP_STEPS, chunk=SP_CHUNK, seed=1)
+    out = {}
+    for loss, augment in SP_LOSSES:
+        state = create_train_state(model(init, SP_FT), LR, WD)
+        kw = {} if mesh is None else {"mesh": mesh, "sp_axis": "sp"}
+        step = make_train_step(state, frontend(), augment=augment, loss=loss, **kw)
+        if mesh is not None:
+            step = data_parallel(step, mesh)
+        got = {"loss": [], "mean_gain": []}
+        for k, (stems, mix) in enumerate(data):
+            metrics = step(torch.from_numpy(stems), torch.from_numpy(mix),
+                           torch.Generator().manual_seed(11 + k))
+            got["loss"].append(float(metrics["loss"]))
+            got["mean_gain"].append(float(metrics["mean_gain"]))
+            if k == 0:
+                got["state"] = {n: v.clone() for n, v in state.model.state_dict().items()}
+        out[loss] = got
+    if mesh is not None:
+        out["features"] = state.model.frame_shard(frontend().num_frames(SP_CHUNK),
+                                                  mesh.axis("sp"), mesh.axis("dp").size).features
+    return out
+
+
 def trainer_results(mesh, data, init, ckpt_dir):
     """The ``Trainer`` validation pass and a ``SyntheticTrainer`` gain epoch
     (one step, one validation batch)."""
@@ -131,19 +173,25 @@ def mixer_results(mesh):
 
 def main(argv) -> int:
     rank, world, init, out_dir = int(argv[1]), int(argv[2]), argv[3], argv[4]
+    mode = argv[5] if len(argv) > 5 else "dp"
     torch.set_num_threads(1)
     from tpumix_torch.parallel import distributed
     from tpumix_torch.parallel.mesh import make_mesh
 
     distributed.initialize(init, world, rank, backend="gloo", device="cpu", timeout_s=300)
     try:
-        mesh = make_mesh((world,), ("dp",))
-        data = batches()
-        init = torch.load(os.path.join(out_dir, "init.pt"))
-        out = {"steps": step_results(mesh, data, init),
-               "trainer": trainer_results(mesh, data, init, os.path.join(out_dir, "ckpt")),
-               "mixer": mixer_results(mesh),
-               "mesh": {"shape": dict(mesh.shape), "axis_names": mesh.axis_names}}
+        init_sp = torch.load(os.path.join(out_dir, "init_sp.pt"))
+        if mode == "sp":
+            out = {"sp": sp_step_results(make_mesh((2, world // 2), ("dp", "sp")), init_sp)}
+        else:
+            mesh = make_mesh((world,), ("dp",))
+            data = batches()
+            init = torch.load(os.path.join(out_dir, "init.pt"))
+            out = {"steps": step_results(mesh, data, init),
+                   "trainer": trainer_results(mesh, data, init, os.path.join(out_dir, "ckpt")),
+                   "mixer": mixer_results(mesh),
+                   "mesh": {"shape": dict(mesh.shape), "axis_names": mesh.axis_names},
+                   "sp": sp_step_results(make_mesh((1, world), ("dp", "sp")), init_sp)}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         distributed.shutdown()

@@ -4,8 +4,7 @@ Kept as a copy, not an import: the port imports nothing of ``tpumix``.  The
 one behavioural difference is :meth:`FrontendConfig.resolved_implementation`:
 ``"auto"`` picks the best applicable fused frontend on every device (the
 hand-written kernel on cuda, its plain torch version on the CPU), where the
-JAX package does so on TPU backends only.  ``TrainConfig`` keeps its mesh
-fields for the day the port trains across cards (ROADMAP.md item 15).
+JAX package does so on TPU backends only.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ _DIF_BLOCK = 128  # contiguous block size of the DIF split (n = 128*n1 + n2)
 _CT_N1 = 16  # phase count of the DIT split (n = 16*n2 + p)
 
 # concrete implementations, under the JAX package's names
-_IMPLEMENTATIONS = ("dif_pallas", "ct_pallas", "pallas", "fft")
+_IMPLEMENTATIONS = ("dif_pallas", "ct_pallas", "pallas", "fft", "matmul", "ct")
 
 
 def dif_applicable(cfg: "FrontendConfig") -> bool:
@@ -67,22 +66,21 @@ class FrontendConfig:
     # "pallas"    : naive windowed-basis frontend, any n_fft % hop == 0
     #               (tpumix_torch/ops/stft_basis.py)
     # "fft"       : torch.stft
+    # "matmul"    : one float32 product with a windowed [n_fft, 2*bins] DFT basis
+    # "ct"        : the float32 Cooley-Tukey factorized DFT (16 phases), or
+    #               "matmul" where ct_applicable fails
     # The names are the JAX package's, so one config selects the same
     # algorithm in both.  Each fused frontend is a hand-written kernel on
-    # cuda and its plain torch version on the CPU.
+    # cuda and its plain torch version on the CPU; "matmul" and "ct" are
+    # XLA-level formulations in the JAX package and plain torch here.
     implementation: str = "auto"
 
     def resolved_implementation(self) -> str:
         """Concrete implementation, one of ``"dif_pallas"``, ``"ct_pallas"``,
-        ``"pallas"``, ``"fft"``; the same on every device.  The XLA-level
-        formulations ``"matmul"`` and ``"ct"`` of the JAX package are not
-        ported (ROADMAP.md item 16)."""
+        ``"pallas"``, ``"fft"``, ``"matmul"``, ``"ct"``; the same on every
+        device.  ``"auto"`` never picks ``"matmul"`` or ``"ct"``, as in the
+        JAX package."""
         impl = "dif_pallas" if self.implementation == "dif" else self.implementation
-        if impl in ("matmul", "ct"):
-            raise NotImplementedError(
-                f"frontend implementation {impl!r} (an XLA-level formulation of "
-                "the JAX package) is not ported: ROADMAP.md item 16"
-            )
         if impl in _IMPLEMENTATIONS:
             return impl
         if impl != "auto":
@@ -131,7 +129,9 @@ class ModelConfig:
     use_dropout: bool = True
     # conv lowering: "auto" and "xla" = F.conv2d + BN + ReLU (cuDNN on the
     # card); "pallas" = the hand-written fused conv+BN+ReLU kernel
-    # (tpumix_torch/ops/conv_block.py) for eligible blocks, as in JAX
+    # (tpumix_torch/ops/conv_block.py) for eligible blocks, as in JAX;
+    # "khgemm" / "khgemm_hybrid" / "khgemm_int8" = the kh-unrolled GEMM
+    # lowerings (tpumix_torch/ops/conv_khgemm.py; int8 is inference only)
     conv_impl: str = "auto"
 
     def frontend(self, base: Optional[FrontendConfig] = None) -> FrontendConfig:

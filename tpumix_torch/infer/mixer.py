@@ -127,7 +127,7 @@ class SongMixer:
         self.model_cfg = model_cfg
         self.mix_cfg = mix_cfg or MixConfig(chunk_length_s=model_cfg.chunk_length_s)
         self.frontend = model_cfg.frontend()
-        self.frontend.resolved_implementation()  # raise early if not ported
+        self.frontend.resolved_implementation()  # raise early on an unknown name
         self.chunk_samples = self.frontend.chunk_samples(model_cfg.chunk_length_s)
         self.transfer_dtype = transfer_dtype
         self._chunk_axis = (mesh.axis(chunk_axis)

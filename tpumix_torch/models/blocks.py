@@ -3,8 +3,9 @@
 ConvBlock2d is Conv2d(VALID) -> BatchNorm(eps 1e-3, torch momentum 0.90 ==
 flax retained fraction 0.10) -> ReLU -> Dropout (train only), reference
 model_scalar_1s.py:151-190.  The trunk runs in ``torch.channels_last``, so the
-NHWC view the fused kernel takes is free.  In training mode every block is
-``F.conv2d`` + BN + ReLU (+ dropout); the fused kernel is inference only.
+NHWC view the fused kernel and the khgemm lowerings take is free.  In
+training mode the fused kernel's blocks (``conv_impl="pallas"``) are
+``F.conv2d`` + BN + ReLU (+ dropout): the kernel is inference only.
 The ResNet family's ``BasicBlock`` and ``Bottleneck`` are ``F.conv2d`` + BN
 throughout, as in the JAX package (plain ``nn.Conv``, no Pallas kernel).
 """
@@ -17,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpumix_torch.ops import conv_khgemm
 from tpumix_torch.ops.conv_block import (
     PackedConvBlock,
     conv_block_fused_packed,
@@ -25,6 +27,16 @@ from tpumix_torch.ops.conv_block import (
 )
 
 BN_EPS = 1e-3
+
+#: every ``conv_impl`` a block takes; "auto" is resolved by the registry
+CONV_IMPLS = ("xla", "pallas", "khgemm", "khgemm_hybrid", "khgemm_int8")
+# the khgemm lowerings, by the ``vjp`` of tpumix_torch/ops/conv_khgemm.py::conv2d
+_KHGEMM_VJP = {"khgemm": "khgemm", "khgemm_hybrid": "xla", "khgemm_int8": "int8"}
+
+INFERENCE_ONLY = (
+    "conv_impl='khgemm_int8' is inference-only (round-to-nearest has no useful "
+    "gradient); train with 'xla' or 'khgemm_hybrid' and switch at eval time: "
+    "the parameters are the same")
 
 
 def _pair(k: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -46,15 +58,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     :func:`use_global_batchnorm`) a training batch is normalised over the
     GLOBAL batch, the ranks' shards together, as the JAX step under GSPMD
     does (tpumix/train/state.py:16-19).  ``nn.SyncBatchNorm`` is not used:
-    it folds the unbiased variance."""
+    it folds the unbiased variance.
+
+    ``frames = (owned, width, rows)`` (a frame-sharded trunk,
+    tpumix_torch/parallel/frames.py): ``x`` holds this rank's frames of a
+    layer ``width`` frames wide over ``rows`` data-parallel ranks, and the
+    statistics are taken over its first ``owned`` frames, which the ranks'
+    own frames partition."""
 
     global_axis = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        if self.global_axis is not None and self.global_axis.size > 1:
-            return self._global_forward(x)
+        if frames is not None or (self.global_axis is not None and self.global_axis.size > 1):
+            return self._global_forward(x, frames)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
         # torch folds the unbiased variance into a copy (which autograd keeps
@@ -68,19 +87,25 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
         return y
 
-    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _global_forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
         """Training-mode batch norm over the ranks' shards together, in
         float32: the global mean, then the biased variance about it (two
-        passes, each a differentiable all-reduce of per-channel sums, so the
-        backward sums the gradients of every rank's loss)."""
+        passes, each a differentiable all-reduce of per-channel sums over the
+        owned elements, so the backward sums the gradients of every rank's
+        loss)."""
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
         axis = self.global_axis
         xf = x.float()
-        n = (x.numel() // x.shape[1]) * axis.size
-        mean = axis.sum_with_grad(xf.sum(dim=(0, 2, 3))) / n
+        if frames is None:
+            n = (x.numel() // x.shape[1]) * axis.size
+            own = x.shape[-1]
+        else:
+            own, width, rows = frames
+            n = x.shape[0] * rows * x.shape[2] * width
+        mean = axis.sum_with_grad(xf[..., :own].sum(dim=(0, 2, 3))) / n
         xc = xf - mean[:, None, None]
-        var = axis.sum_with_grad(torch.square(xc).sum(dim=(0, 2, 3))) / n
+        var = axis.sum_with_grad(torch.square(xc[..., :own]).sum(dim=(0, 2, 3))) / n
         scale = torch.rsqrt(var + self.eps)
         if self.affine:
             scale = scale * self.weight
@@ -106,19 +131,25 @@ class ConvBlock2d(nn.Module):
 
     ``conv_impl="pallas"`` runs eligible blocks (eval mode, stride 1,
     dilation 1, float32 — the conditions of tpumix/models/blocks.py:166-173)
-    through the fused conv+BN+ReLU kernel with BN folded; every other case
-    is ``F.conv2d`` + BN + ReLU.  The folded and packed operands of the kernel
-    are made once and kept until a parameter or a BN buffer changes."""
+    through the fused conv+BN+ReLU kernel with BN folded; its other blocks,
+    training mode included, are ``F.conv2d`` + BN + ReLU (the JAX package
+    trains them through khgemm's hand VJP, which computes the same function).
+    The folded and packed operands of the kernel are made once and kept
+    until a parameter or a BN buffer changes.
+
+    ``"khgemm"``, ``"khgemm_hybrid"`` and ``"khgemm_int8"`` lower the
+    convolution through tpumix_torch/ops/conv_khgemm.py (stride 1 and
+    dilation 1; the others take ``F.conv2d``), then add the bias in the
+    compute dtype (tpumix/models/blocks.py:63-77); ``"khgemm_int8"`` refuses
+    training mode.  Every ``conv_impl`` holds the same ``nn.Conv2d``
+    parameters, so state dicts interchange."""
 
     def __init__(self, in_features: int, features: int, kernel_size, strides: int = 1,
                  dilation: int = 1, dropout_p: float = -1.0, bn_momentum: float = 0.10,
                  conv_impl: str = "xla"):
         super().__init__()
-        if conv_impl not in ("xla", "pallas"):
-            raise NotImplementedError(
-                f"conv_impl {conv_impl!r} is not ported; have 'xla', 'pallas' "
-                "(khgemm and int8 lowerings are ROADMAP.md item 16)"
-            )
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {conv_impl!r}; have {CONV_IMPLS}")
         self.conv = nn.Conv2d(in_features, features, _pair(kernel_size), stride=strides,
                               dilation=dilation, padding=0)
         # flax momentum is the retained fraction of the running stats; torch's
@@ -156,12 +187,29 @@ class ConvBlock2d(nn.Module):
             and self.conv.weight.dtype == torch.float32
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _khgemm(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution through a khgemm lowering, in the compute dtype
+        (autocast's where it is on), the bias added after it."""
+        if self.conv_impl == "khgemm_int8" and self.training:
+            raise ValueError(INFERENCE_ONLY)
+        dtype = (torch.get_autocast_dtype(x.device.type)
+                 if torch.is_autocast_enabled(x.device.type) else x.dtype)
+        nhwc = x.to(dtype).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        w = self.conv.weight.to(dtype).permute(2, 3, 1, 0)  # OIHW -> HWIO
+        y = conv_khgemm.conv2d(nhwc, w, self.conv.stride, self.conv.dilation,
+                               vjp=_KHGEMM_VJP[self.conv_impl])
+        return y.permute(0, 3, 1, 2) + self.conv.bias.to(dtype)[:, None, None]
+
+    def forward(self, x: torch.Tensor, frames: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+        """``frames``: BatchNorm's owned frames of a frame-sharded trunk
+        (:class:`BatchNorm2d`)."""
         if self._fused_eligible(x):
             nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
             y = conv_block_fused_packed(nhwc, self._fused_operands())
             return y.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        x = torch.relu(self.bn(self.conv(x)))
+        y = self._khgemm(x) if self.conv_impl in _KHGEMM_VJP else self.conv(x)
+        x = torch.relu(self.bn(y) if frames is None else self.bn(y, frames))
         if self.dropout is not None:
             x = self.dropout(x)
         return x
@@ -183,6 +231,26 @@ class ScalarHead(nn.Module):
         if extra is not None:
             h = torch.cat([h, extra.to(h.dtype)], dim=-1)
         return self.fc(h)  # [B, 1]
+
+    def partial(self, x: torch.Tensor, columns: Tuple[int, int], width: int,
+                extra: Optional[torch.Tensor] = None, bias: bool = True) -> torch.Tensor:
+        """This rank's part ``[B, 1]`` of the head's output when ``x`` holds
+        the columns ``[c0, c1)`` of a ``width``-wide input: the dense layer's
+        weights of those columns (NCHW flatten), plus, where ``bias``, the
+        ``extra`` features' terms and the bias.  The parts sum to
+        :meth:`forward` of the whole input."""
+        h = torch.relu(self.conv(x))[:, 0]  # [B, H, c1 - c0]
+        H = h.shape[1]
+        w = self.fc.weight[0]
+        cols = w[: H * width].view(H, width)[:, columns[0]: columns[1]]
+        out = torch.einsum("bhw,hw->b", h, cols.to(h.dtype))[:, None]
+        if bias:
+            if extra is not None:
+                out = out + extra.to(h.dtype) @ w[H * width:].to(h.dtype)[:, None]
+            return out + self.fc.bias.to(h.dtype)
+        # a zero term, so every rank has the bias gradient that the gradient
+        # all-reduce expects
+        return out + 0.0 * self.fc.bias.to(h.dtype)
 
 
 # ResNet blocks (tpumix/models/blocks.py:266-361): BatchNorm at torch's default

@@ -9,6 +9,7 @@ import torch
 import torch.nn as nn
 
 from tpumix_torch.config import ModelConfig
+from tpumix_torch.models.blocks import INFERENCE_ONLY
 from tpumix_torch.models.resnet import GainResNet
 from tpumix_torch.models.scalar import (
     MixingModelScalar1s,
@@ -48,20 +49,24 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
     """Construct the preset's model on the CPU with random weights drawn from
     ``generator`` (a generator seeded 0 when None), in eval mode, or in
     training mode (dropout on, batch statistics) when ``for_training``.  In
-    training mode every block runs ``F.conv2d`` whatever ``conv_impl`` says:
-    the fused kernel is inference only (blocks.py ``_fused_eligible``).
+    training mode the blocks of ``conv_impl="pallas"`` run ``F.conv2d``: the
+    fused kernel is inference only (blocks.py ``_fused_eligible``);
+    ``"khgemm_int8"`` is refused for training (``ValueError``), as in the JAX
+    package.
 
     ``in_shape = (F, T)`` defaults to the preset's full spectrogram (1025
     bins x the pinned frame count); it sizes the heads' dense layers.
-    ``conv_impl="auto"`` resolves to ``"xla"`` (F.conv2d): the JAX package's
-    TPU default, khgemm, is an XLA-level formulation that waits for ROADMAP.md
-    item 16.  ``resnet18`` is ``GainResNet``, whose convolutions are
+    ``conv_impl="auto"`` resolves to ``"xla"`` (F.conv2d) on every device:
+    the JAX package picks khgemm on a TPU only, and which trunk the card
+    should default to is ROADMAP.md item 17.  ``resnet18`` is ``GainResNet``, whose convolutions are
     ``F.conv2d`` whatever ``conv_impl`` says (as in the JAX package) and
     whose BatchNorm keeps torch's default momentum."""
     if cfg.name not in _SCALAR and cfg.name != "resnet18":
         raise ValueError(f"unknown model {cfg.name!r}; have {sorted([*_SCALAR, 'resnet18'])}")
     if in_shape is None:
         in_shape = (cfg.frontend().num_bins, cfg.num_frames)
+    if cfg.conv_impl == "khgemm_int8" and for_training:
+        raise ValueError(INFERENCE_ONLY)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if cfg.name == "resnet18":
         model = GainResNet(in_shape=in_shape, num_stems=cfg.num_stems, compute_dtype=dtype)

@@ -10,13 +10,14 @@ dB / 20 after the flatten (a tpumix extension).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from tpumix_torch.models.blocks import ConvBlock2d, ScalarHead
 from tpumix_torch.ops.gain import spectral_mix
+from tpumix_torch.parallel.frames import FrameShard
 
 NUM_STEMS = 4
 # (features, kernel, dropout p) of blocks 2-5; block 1 is 16 k3 stride 2
@@ -63,13 +64,28 @@ class _ScalarModelBase(nn.Module):
             setattr(self, f"head{i}", ScalarHead(cin, flat))
         self.num_stems = num_stems
 
-    def gains(self, x: torch.Tensor) -> torch.Tensor:
+    def frame_shard(self, frames: int, axis, rows: int = 1) -> FrameShard:
+        """The part of the frame axis of a ``frames``-frame input that the
+        ``sp`` rank ``axis`` computes and owns (tpumix_torch/parallel/frames.py);
+        ``rows`` is the number of ``dp`` ranks."""
+        layers = [(3, 2, self.block1_dilation)] + [(k, 1, 1) for _, k, _ in _TRUNK]
+        return FrameShard.build(frames, layers, axis, rows)
+
+    def gains(self, x: torch.Tensor, shard: Optional[FrameShard] = None) -> torch.Tensor:
         """``x [B, S, F, T]`` -> ``gains [B, S]`` float32 (no spectral mix).
 
         Under a bfloat16 ``compute_dtype`` the trunk, the heads and the level
         features run in bfloat16, as in the JAX package (its heads take the
         model's dtype and the levels are cast to it); the gains are cast to
-        float32 at the end.  Parameters and BN statistics stay float32."""
+        float32 at the end.  Parameters and BN statistics stay float32.
+
+        With ``shard`` (:meth:`frame_shard`), ``x`` holds this rank's feature
+        frames ``shard.features``; BatchNorm takes its statistics over the
+        owned frames, the heads sum their partial dots over the ``sp`` ranks
+        and the level features are the means over all frames, so every rank
+        returns the gains of the whole input."""
+        if shard is not None:
+            return self._sharded_gains(x, shard)
         h = x.to(torch.float32).contiguous(memory_format=torch.channels_last)
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
                             enabled=self.compute_dtype != torch.float32):
@@ -84,6 +100,25 @@ class _ScalarModelBase(nn.Module):
                 dim=-1,
             )
         return gains.to(torch.float32)
+
+    def _sharded_gains(self, x: torch.Tensor, shard: FrameShard) -> torch.Tensor:
+        h = x.to(torch.float32).contiguous(memory_format=torch.channels_last)
+        with torch.autocast(x.device.type, dtype=self.compute_dtype,
+                            enabled=self.compute_dtype != torch.float32):
+            for i in range(1, 6):
+                h = getattr(self, f"conv_b{i}")(h, frames=(*shard.owned(i), shard.rows))
+            levels = None
+            if self.level_features:
+                own, width = shard.owned(0)
+                with torch.no_grad():
+                    sums = shard.axis.all_reduce(x[..., :own].to(torch.float32).sum(dim=(2, 3)))
+                levels = (sums / (x.shape[2] * width) * (1.0 / 20.0)).to(h.dtype)
+            lo, hi, _, width = shard.ranges[-1]
+            parts = torch.cat(
+                [getattr(self, f"head{i}").partial(h, (lo, hi), width, extra=levels,
+                                                   bias=shard.axis.index == 0)
+                 for i in range(1, self.num_stems + 1)], dim=-1)
+        return shard.axis.sum_identity_grad(parts.to(torch.float32))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """:param x: ``[B, num_stems, F, T]`` stacked dB spectrograms.

@@ -15,7 +15,12 @@ group, and the reductions are explicit collectives:
   (tpumix_torch/models/blocks.py) and reduce their metrics, so an N-rank step
   is the one-process step on the global batch;
 * :func:`data_parallel` is ``data_parallel_jit``'s counterpart: it feeds such
-  a step the global batch.
+  a step the global batch;
+* a train step built with a second, ``sp`` axis splits the frame axis of
+  the trunk over it (tpumix_torch/parallel/frames.py): :meth:`Mesh.axes`
+  names the ``dp x sp`` group its BatchNorm and gradients reduce over, and
+  :meth:`MeshAxis.sum_identity_grad` / :meth:`MeshAxis.grad_sum` carry the
+  partial head dots and the frame-split losses between the ranks.
 """
 
 from __future__ import annotations
@@ -46,6 +51,38 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _AllReduceSum.apply(grad, ctx.group), None
+
+
+class _SumIdentityGrad(torch.autograd.Function):
+    """``y = sum over ranks of x``, whose backward is the identity: for a
+    ``y`` that every rank then uses alike, each rank's ``x`` gets the
+    gradient of ``y`` once (a sum over ranks would count it once per rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GradSum(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the ranks: the
+    gradient of a value that each rank uses for its own part of a sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +117,20 @@ class MeshAxis:
         if self.size == 1:
             return x
         return _AllReduceSum.apply(x, self.group)
+
+    def sum_identity_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the axis's ranks; its backward passes the
+        gradient through unchanged (the partial dots of a split head)."""
+        if self.size == 1:
+            return x
+        return _SumIdentityGrad.apply(x, self.group)
+
+    def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; its backward sums the gradient over the axis's ranks
+        (a replicated value each rank uses for its own part of a loss)."""
+        if self.size == 1:
+            return x
+        return _GradSum.apply(x, self.group)
 
     def rows(self, n_global: int) -> slice:
         """This rank's contiguous block of a leading axis of ``n_global``."""
@@ -126,6 +177,23 @@ class Mesh:
         if name not in self._axes:
             raise ValueError(f"mesh has no axis {name!r}; have {self.axis_names}")
         return self._axes[name]
+
+    def axes(self, *names: str) -> MeshAxis:
+        """The axes ``names`` as one: one name is :meth:`axis`; several must
+        be every axis of the mesh whose size exceeds 1 (the group of all
+        ranks), as ``("dp", "sp")`` is on a ``dp x sp`` mesh."""
+        names = tuple(n for n in names if n is not None)
+        for n in names:
+            self.axis(n)
+        if len(names) == 1:
+            return self.axis(names[0])
+        wide = {n for n, a in self._axes.items() if a.size > 1}
+        if not wide <= set(names):
+            raise ValueError(f"axes {names} leave out {sorted(wide - set(names))}: only one "
+                             "axis or every axis of the mesh can act as one")
+        index = int(np.ravel_multi_index(tuple(self._axes[n].index for n in self.axis_names),
+                                         self.devices.shape))
+        return MeshAxis("*".join(names), int(self.devices.size), index)
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)}, rank {process_index()})"
@@ -193,15 +261,17 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
-def average_gradients(params, axis: MeshAxis) -> None:
-    """Replace each gradient by its mean over the axis's ranks: one collective
-    over a flat buffer of every gradient."""
+def average_gradients(params, axis: MeshAxis, divisor: Optional[int] = None) -> None:
+    """Replace each gradient by its sum over the axis's ranks divided by
+    ``divisor`` (default: the axis's size, the mean): one collective over a
+    flat buffer of every gradient.  A ``dp x sp`` step sums over both axes
+    and divides by the ``dp`` size."""
     grads = [p.grad for p in params if p.grad is not None]
     if axis.size == 1 or not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     axis.all_reduce(flat)
-    flat /= axis.size
+    flat /= axis.size if divisor is None else divisor
     offset = 0
     for g in grads:
         g.copy_(flat[offset: offset + g.numel()].view_as(g))

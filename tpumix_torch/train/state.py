@@ -29,7 +29,15 @@ global batch: BatchNorm normalises over it, the gradients are averaged, the
 means, augmentation draws the global batch's gains, and ``loss`` and
 ``mean_gain`` are global means.  So an N-rank step is the one-process step on
 the global batch, up to the order of float32 sums.  Dropout stays per rank.
-``sp_axis`` (frame-axis sharding) is not ported.
+
+Frame-axis ("sequence") sharding.  :func:`make_train_step` with ``sp_axis``
+(a ``dp x sp`` mesh) also splits the trunk's frame axis over the ``sp``
+ranks of each ``dp`` group (tpumix_torch/parallel/frames.py): each computes
+the features and trunk over the frames its conv5 columns need, BatchNorm
+normalises over the whole ``dp x sp`` group on a partition of each layer's
+frames, the heads' partial dots and the frame-summed losses are summed over
+``sp``, and the gradients are summed over ``sp`` and averaged over ``dp``:
+still the one-process step on the global batch.  The scalar models only.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from tpumix_torch.infer.mixer import _dequantize_on_device
 from tpumix_torch.models.blocks import use_global_batchnorm
 from tpumix_torch.ops.gain import augment_audio
 from tpumix_torch.ops.stft import spectrogram_features
+from tpumix_torch.ops.gain import spectral_mix
+from tpumix_torch.parallel.frames import FrameShard, frame_features
 from tpumix_torch.parallel.mesh import MeshAxis, average_gradients
 
 _LN10 = 2.302585092994046
@@ -149,21 +159,31 @@ def make_frontend_fn(frontend: FrontendConfig) -> Callable:
     return _features
 
 
-def _dp(mesh, dp_axis: Optional[str], sp_axis: Optional[str] = None,
-        model: Optional[nn.Module] = None) -> Optional[MeshAxis]:
+def _dp(mesh, dp_axis: Optional[str], model: Optional[nn.Module] = None
+        ) -> Optional[MeshAxis]:
     """The mesh's data-parallel axis (None without a mesh).  For a train step
     (``model`` given) its BatchNorm layers normalise over that axis's global
     batch from here on."""
-    if sp_axis is not None:
-        raise NotImplementedError(
-            f"sp_axis={sp_axis!r}: frame-axis sharding (a tensor-parallel convolution "
-            "with a halo exchange) is not ported; see ROADMAP.md item 15")
     if mesh is None or dp_axis is None:
         return None
     axis = mesh.axis(dp_axis)
     if model is not None:
         use_global_batchnorm(model, axis)
     return axis
+
+
+def _sp(mesh, dp_axis: Optional[str], sp_axis: str, model: nn.Module):
+    """``(dp axis or None, sp axis, the dp x sp group)`` of a frame-sharded
+    step; the model's BatchNorm layers normalise over the whole group."""
+    if mesh is None:
+        raise ValueError(f"sp_axis={sp_axis!r} needs a mesh")
+    if not hasattr(model, "frame_shard"):
+        raise ValueError(f"sp_axis: {type(model).__name__} has no frame-sharded trunk "
+                         "(the scalar models have)")
+    dp = mesh.axis(dp_axis) if dp_axis is not None else None
+    group = mesh.axes(dp_axis, sp_axis)
+    use_global_batchnorm(model, group)
+    return dp, mesh.axis(sp_axis), group
 
 
 def _global_mean(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
@@ -173,15 +193,21 @@ def _global_mean(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
 
 
 def _gain_loss_backward_update(state: TrainState, feats: torch.Tensor, loss_of: Callable,
-                               axis: Optional[MeshAxis] = None) -> Dict[str, torch.Tensor]:
+                               axis: Optional[MeshAxis] = None,
+                               grad_axis: Optional[MeshAxis] = None) -> Dict[str, torch.Tensor]:
     """Shared tail of every train step: forward in training mode, the loss
     from ``loss_of(model, feats) -> (value, gains)``, backward, the gradients
-    averaged over ``axis``, one update; metrics are global means."""
+    averaged over ``axis`` (with ``grad_axis``, a ``dp x sp`` group: summed
+    over it and divided by the ``dp`` size), one update; metrics are global
+    means over ``axis``."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     value, gains = loss_of(state.model, feats)
     value.backward()
-    if axis is not None:
+    if grad_axis is not None:
+        average_gradients(state.model.parameters(), grad_axis,
+                          divisor=1 if axis is None else axis.size)
+    elif axis is not None:
         average_gradients(state.model.parameters(), axis)
     _apply_update(state)
     return {"loss": _global_mean(value.detach(), axis),
@@ -196,7 +222,7 @@ def make_gain_train_step(state: TrainState, frontend: FrontendConfig, mesh=None,
     analogue: the reference's corpora carry no gain labels.  ``mesh``: see
     the module docstring."""
     _features = make_frontend_fn(frontend)
-    axis = _dp(mesh, dp_axis, model=state.model)
+    axis = _dp(mesh, dp_axis, state.model)
 
     def step(stems: torch.Tensor, g_true: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -381,20 +407,26 @@ def _check_loss(loss: str) -> None:
 
 def _objective(loss: str, frontend: FrontendConfig, _features: Callable,
                axis: Optional[MeshAxis] = None) -> Callable:
-    """``(model, feats, stems, mix) -> (loss value, gains)`` for one of
-    :data:`SELF_SUPERVISED_LOSSES`; one definition behind the train and the
-    eval step.  The value is this rank's mean, its global statistics those of
-    ``axis``'s global batch.  The waveform-domain objectives never compute
-    the mix's spectrogram."""
+    """``(model, feats, stems, mix, shard=None) -> (loss value, gains)`` for
+    one of :data:`SELF_SUPERVISED_LOSSES`; one definition behind the train
+    and the eval step.  The value is this rank's mean, its global statistics
+    those of ``axis``'s global batch.  The waveform-domain objectives never
+    compute the mix's spectrogram.  With a :class:`FrameShard` the features
+    are this ``sp`` rank's frames, and the spectrogram objectives sum over
+    its owned frames, then over ``sp``."""
 
-    def objective(model, feats, stems, mix):
+    def objective(model, feats, stems, mix, shard: Optional[FrameShard] = None):
+        if shard is not None:
+            gains = model.gains(feats, shard=shard)
         if loss == "coherent":
-            gains = model.gains(feats)
+            gains = gains if shard is not None else model.gains(feats)
             return _coherent_loss(stems, mix, gains, axis), gains
         if _is_lstsq(loss):
-            gains = model.gains(feats)
+            gains = gains if shard is not None else model.gains(feats)
             return _lstsq_loss(stems, mix, gains, tail=loss != "lstsq",
                                recenter_cm=loss == "lstsq_tail_cm", axis=axis), gains
+        if shard is not None:
+            return _sharded_spectral_loss(loss, frontend, _features, feats, mix, gains, shard)
         with torch.no_grad():
             gt = _features(mix)
         if loss == "roundtrip":
@@ -405,6 +437,28 @@ def _objective(loss: str, frontend: FrontendConfig, _features: Callable,
         return torch.mean(torch.square(masked - gt)), gains
 
     return objective
+
+
+def _sharded_spectral_loss(loss: str, frontend: FrontendConfig, _features: Callable,
+                           feats: torch.Tensor, mix: torch.Tensor, gains: torch.Tensor,
+                           shard: FrameShard):
+    """``reference`` / ``roundtrip`` on a frame-sharded step: this rank's sum
+    of squared errors over its owned feature frames, over the global count,
+    summed over ``sp``.  Each rank's part reaches the gains through
+    :meth:`MeshAxis.grad_sum`, so every rank's gains get the gradient of the
+    whole sum."""
+    lo, own_hi = shard.owned_features
+    own, width = shard.owned(0)
+    with torch.no_grad():
+        gt = frame_features(_features, mix, frontend, lo, own_hi)
+    feats = feats[..., :own]
+    g = shard.axis.grad_sum(gains)
+    if loss == "roundtrip":
+        masked = _roundtrip_masked_db(feats, g, frontend.amin)
+    else:
+        masked = spectral_mix(feats, g)
+    part = torch.sum(torch.square(masked - gt)) / (masked.shape[0] * masked.shape[1] * width)
+    return shard.axis.sum_identity_grad(part), gains
 
 
 def make_train_step(state: TrainState, frontend: FrontendConfig, augment: bool = False,
@@ -426,10 +480,14 @@ def make_train_step(state: TrainState, frontend: FrontendConfig, augment: bool =
     waveform-domain objectives above.
 
     ``mesh``: the step runs on each rank of its ``dp_axis`` with that rank's
-    rows of the global batch (module docstring); ``sp_axis`` raises
-    ``NotImplementedError``."""
+    rows of the global batch (module docstring); with ``sp_axis`` each rank
+    of that axis also takes its part of the frame axis (the scalar models;
+    the module docstring)."""
     _check_loss(loss)
-    axis = _dp(mesh, dp_axis, sp_axis, model=state.model)
+    if sp_axis is not None:
+        axis, sp, group = _sp(mesh, dp_axis, sp_axis, state.model)
+    else:
+        axis, sp, group = _dp(mesh, dp_axis, state.model), None, None
     _features = make_frontend_fn(frontend)
     objective = _objective(loss, frontend, _features, axis)
 
@@ -446,9 +504,16 @@ def make_train_step(state: TrainState, frontend: FrontendConfig, augment: bool =
                 stems = augment_audio(stems, generator, axis=axis)
                 if augment_mix:
                     mix = augment_audio(mix, generator, axis=axis)
-            feats = _features(stems)  # [B, 4, F, T]
+            shard = None
+            if sp is None:
+                feats = _features(stems)  # [B, 4, F, T]
+            else:
+                shard = state.model.frame_shard(frontend.num_frames(stems.shape[-1]), sp,
+                                                1 if axis is None else axis.size)
+                feats = frame_features(_features, stems, frontend, *shard.features)
         return _gain_loss_backward_update(
-            state, feats, lambda model, feats: objective(model, feats, stems, mix), axis)
+            state, feats, lambda model, feats: objective(model, feats, stems, mix, shard), axis,
+            group)
 
     return step
 
