@@ -1043,13 +1043,13 @@ def _study_trace(model, h0, smi) -> None:
     device operations by self time."""
     import torch
 
-    from tpumix_torch.utils.profiling import annotate, trace_to
+    from tpumix_torch.utils.profiling import span, trace_to
 
     _set_conv_impl(model, "xla")
     region = "segment gains"
     t0 = time.perf_counter()
     with trace_to(os.path.join(ROOT, "chiprun_out", "study_trace")) as prof:
-        with annotate(region):
+        with span(region):
             model.gains(h0)
         torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
@@ -1057,10 +1057,9 @@ def _study_trace(model, h0, smi) -> None:
     key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
            else "self_cuda_time_total")
     # the device's own entries (kernels, copies); the operators above them
-    # carry the same time again, and so does the annotation's range on the
-    # device's timeline
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != region]
+    # carry the same time again.  The program's span is kept by the program
+    # and written into the Chrome trace, not into the profile.
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(getattr(e, key) for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: getattr(e, key), reverse=True)[:5]
     log(f"[study] torch.profiler, one segment's gains (cuDNN trunk): {len(kernels)} device "

@@ -39,6 +39,7 @@ from tpumix_torch.ops.smoothing import (
 )
 from tpumix_torch.ops.stft import spectrogram_features_tm
 from tpumix_torch.utils.device import disable_tf32, resolve_device
+from tpumix_torch.utils.profiling import carry, count, span
 
 STEMS: Tuple[str, ...] = ("bass", "drums", "vocals", "other")
 
@@ -195,6 +196,10 @@ class SongMixer:
 
         def pack(lo: int, n: int):
             """Segment [lo, lo+n) -> (wire buffer, optional scales)."""
+            with span("mixer.pack"):
+                return _pack(lo, n)
+
+        def _pack(lo: int, n: int):
             src = stems[:, lo * C : (lo + n) * C]
             if out_dtype == np.uint8:
                 wire, scales = _pack_int12(
@@ -223,10 +228,13 @@ class SongMixer:
             return buf, None
 
         def dispatch(packed, n: int):
-            buf, scales = packed
-            wire = buf.to(self.device, non_blocking=True)
-            sc = None if scales is None else torch.from_numpy(scales).to(self.device)
-            return (self._gains_fn(wire, seg, sc), n)
+            count("mixer.chunks_real", n)
+            count("mixer.chunks_run", seg)
+            with span("mixer.dispatch"):
+                buf, scales = packed
+                wire = buf.to(self.device, non_blocking=True)
+                sc = None if scales is None else torch.from_numpy(scales).to(self.device)
+                return (self._gains_fn(wire, seg, sc), n)
 
         segs = [(lo, min(seg, n_gains - lo)) for lo in range(0, n_gains, seg)]
         if len(segs) == 1:
@@ -236,12 +244,12 @@ class SongMixer:
         window = 2
         futures = []
         pending = deque(
-            self._packer.submit(pack, *segs[i]) for i in range(min(window, len(segs)))
+            self._packer.submit(carry(pack), *segs[i]) for i in range(min(window, len(segs)))
         )
         for i, (lo, n) in enumerate(segs):
             packed = pending.popleft().result()
             if i + window < len(segs):
-                pending.append(self._packer.submit(pack, *segs[i + window]))
+                pending.append(self._packer.submit(carry(pack), *segs[i + window]))
             futures.append(dispatch(packed, n))
         return futures
 
@@ -250,7 +258,8 @@ class SongMixer:
         """Wait for a :meth:`song_gains_async` handle -> ``[n_gains, 4]``."""
         if not futures:
             return np.zeros((0, len(STEMS)), dtype=np.float32)
-        return np.concatenate([g[:n].cpu().numpy() for g, n in futures], axis=0)
+        with span("mixer.collect"):
+            return np.concatenate([g[:n].cpu().numpy() for g, n in futures], axis=0)
 
     def song_gains(self, stems: np.ndarray) -> np.ndarray:
         """Per-chunk raw gains for a whole song.
@@ -279,6 +288,8 @@ class SongMixer:
             flat = stems_dev[:, lo * C : (lo + n) * C]
             if n < seg:
                 flat = torch.nn.functional.pad(flat, (0, (seg - n) * C))
+            count("mixer.chunks_real", n)
+            count("mixer.chunks_run", seg)
             futures.append((self._gains_fn(flat, seg), n))
         return futures
 
@@ -297,30 +308,31 @@ class SongMixer:
         :param stems: ``[4, S]`` mono stems (tensor or array) or a track dict.
         :return: ``(mixed_tracks [4, S], mixed [S] peak-normalised,
             smooth_amp_curves [4, n_gains])`` — device tensors."""
-        if isinstance(stems, dict):
-            stems = np.stack([self._mono(stems[t]) for t in STEMS])
-        stems_dev = torch.as_tensor(stems, dtype=torch.float32).to(self.device)
-        num_stems, S = stems_dev.shape
-        num_chunks = S // self.chunk_samples
-        n_gains = num_chunks - 1
-        if n_gains <= 0:
-            # shorter than two chunks: stems pass through, mixdown normalised
-            mixed = stems_dev.sum(dim=0)
+        with span("mixer.song"):
+            if isinstance(stems, dict):
+                stems = np.stack([self._mono(stems[t]) for t in STEMS])
+            stems_dev = torch.as_tensor(stems, dtype=torch.float32).to(self.device)
+            num_stems, S = stems_dev.shape
+            num_chunks = S // self.chunk_samples
+            n_gains = num_chunks - 1
+            if n_gains <= 0:
+                # shorter than two chunks: stems pass through, mixdown normalised
+                mixed = stems_dev.sum(dim=0)
+                peak = mixed.abs().max()
+                mixed = torch.where(peak > 0, mixed / peak, mixed)
+                return stems_dev, mixed, torch.zeros((num_stems, 0), device=self.device)
+            gains = torch.cat([g[:n] for g, n in self.song_gains_device(stems_dev)], dim=0)
+            curves = torch.pow(10.0, 0.5 * gains).T  # [num_stems, n_gains]
+            if n_gains >= 3:
+                win, poly = self._savgol_params(num_chunks, n_gains)
+                smoothed = savgol_smooth_torch(curves, win, poly)
+            else:
+                smoothed = curves
+            mixed_tracks = stems_dev * interpolate_mask(smoothed, S)
+            mixed = mixed_tracks.sum(dim=0)
             peak = mixed.abs().max()
             mixed = torch.where(peak > 0, mixed / peak, mixed)
-            return stems_dev, mixed, torch.zeros((num_stems, 0), device=self.device)
-        gains = torch.cat([g[:n] for g, n in self.song_gains_device(stems_dev)], dim=0)
-        curves = torch.pow(10.0, 0.5 * gains).T  # [num_stems, n_gains]
-        if n_gains >= 3:
-            win, poly = self._savgol_params(num_chunks, n_gains)
-            smoothed = savgol_smooth_torch(curves, win, poly)
-        else:
-            smoothed = curves
-        mixed_tracks = stems_dev * interpolate_mask(smoothed, S)
-        mixed = mixed_tracks.sum(dim=0)
-        peak = mixed.abs().max()
-        mixed = torch.where(peak > 0, mixed / peak, mixed)
-        return mixed_tracks, mixed, smoothed
+            return mixed_tracks, mixed, smoothed
 
     def mix_song_device(self, stems) -> torch.Tensor:
         """Device-resident :meth:`mix_song`: the peak-normalised mix ``[S]``."""
@@ -338,9 +350,11 @@ class SongMixer:
         """Reference-parity API (inference_utils.py:105-145):
         ``(mixed_tracks, raw_gains, smooth_gains)`` dicts keyed by stem;
         ``loaded_tracks`` values are ``[channels, S]`` or ``[S]``."""
-        stem_mono = np.stack([self._mono(loaded_tracks[t]) for t in STEMS])
-        gains = self.song_gains(stem_mono)
-        return self._apply_gains(loaded_tracks, stem_mono.shape[1], gains)
+        with span("mixer.song"):
+            with span("mixer.downmix"):
+                stem_mono = np.stack([self._mono(loaded_tracks[t]) for t in STEMS])
+            gains = self.song_gains(stem_mono)
+            return self._apply_gains(loaded_tracks, stem_mono.shape[1], gains)
 
     def mix_songs_smooth(self, track_dicts):
         """Dispatch every song's device work first, then run the host
@@ -355,28 +369,29 @@ class SongMixer:
     def _apply_gains(self, loaded_tracks: Dict[str, np.ndarray], S: int, gains: np.ndarray):
         """Host epilogue: dB -> amplitude, Savitzky-Golay, mask stretch,
         per-stem scaling."""
-        amp_gains = 10.0 ** (0.5 * gains)  # float32: overflows as the reference does
-        num_chunks = S // self.chunk_samples
-        raw_gains = {t: list(map(float, amp_gains[:, i])) for i, t in enumerate(STEMS)}
-        if amp_gains.shape[0] == 0:
-            mixed = {t: np.asarray(loaded_tracks[t], dtype=np.float32) for t in STEMS}
-            return mixed, raw_gains, {t: [] for t in STEMS}
+        with span("mixer.epilogue"):
+            amp_gains = 10.0 ** (0.5 * gains)  # float32: overflows as the reference does
+            num_chunks = S // self.chunk_samples
+            raw_gains = {t: list(map(float, amp_gains[:, i])) for i, t in enumerate(STEMS)}
+            if amp_gains.shape[0] == 0:
+                mixed = {t: np.asarray(loaded_tracks[t], dtype=np.float32) for t in STEMS}
+                return mixed, raw_gains, {t: [] for t in STEMS}
 
-        smooth_gains: Dict[str, list] = {}
-        mixed_tracks: Dict[str, np.ndarray] = {}
-        n_gains = amp_gains.shape[0]
-        for i, t in enumerate(STEMS):
-            curve = amp_gains[:, i]
-            if n_gains >= 3:
-                win, poly = self._savgol_params(num_chunks, n_gains)
-                smoothed = savgol_smooth(curve, win, poly)
-            else:
-                smoothed = curve.astype(np.float64)
-            smooth_gains[t] = list(map(float, smoothed))
-            track = np.asarray(loaded_tracks[t], dtype=np.float32)
-            mask = interpolate_mask_np(smoothed, track.shape[-1]).astype(np.float32)
-            mixed_tracks[t] = track * mask
-        return mixed_tracks, raw_gains, smooth_gains
+            smooth_gains: Dict[str, list] = {}
+            mixed_tracks: Dict[str, np.ndarray] = {}
+            n_gains = amp_gains.shape[0]
+            for i, t in enumerate(STEMS):
+                curve = amp_gains[:, i]
+                if n_gains >= 3:
+                    win, poly = self._savgol_params(num_chunks, n_gains)
+                    smoothed = savgol_smooth(curve, win, poly)
+                else:
+                    smoothed = curve.astype(np.float64)
+                smooth_gains[t] = list(map(float, smoothed))
+                track = np.asarray(loaded_tracks[t], dtype=np.float32)
+                mask = interpolate_mask_np(smoothed, track.shape[-1]).astype(np.float32)
+                mixed_tracks[t] = track * mask
+            return mixed_tracks, raw_gains, smooth_gains
 
     def mix_song_raw(self, loaded_tracks: Dict[str, np.ndarray]):
         """Raw-gain mixing (reference ``mix_song``, inference_utils.py:44-102):

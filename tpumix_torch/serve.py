@@ -44,6 +44,7 @@ from tpumix_torch.config import MixConfig
 from tpumix_torch.data import wavio
 from tpumix_torch.infer.mixer import SongMixer
 from tpumix_torch.infer.streaming import StreamingMixer
+from tpumix_torch.utils.profiling import span
 
 STEMS: Tuple[str, ...] = ("bass", "drums", "vocals", "other")
 
@@ -129,7 +130,7 @@ class MixingService:
             return self.mixer.mix_song(tracks)
 
     def gains(self, tracks):
-        with self.lock:
+        with span("service.gains"), self.lock:
             self.requests += 1
             _, raw, smooth = self.mixer.mix_song_smooth(tracks)
             return raw, smooth

@@ -1,44 +1,172 @@
-"""Tracing and timing helpers (tpumix/utils/profiling.py).
+"""The port's tracing: program spans and counters, and trace capture.
 
-* :func:`annotate` — a named region in the profiler's timeline
-  (``torch.profiler.record_function``);
+* :func:`span` — a named phase of the program (a context manager);
+* :func:`count` — a counter event (a name and a value);
+* :func:`spans`, :func:`counts` — snapshots of what was recorded;
+* :func:`carry` — a callable that records, on another thread, under the
+  span and request it was made in;
 * :func:`trace_to` — capture a trace of the enclosed region
   (``torch.profiler.profile`` with CPU and, where a card is present, CUDA
-  activities), written into ``log_dir`` as a Chrome trace; the profile is
-  what the context yields, for ``key_averages()``;
-* :class:`Stopwatch` — named wall-clock sections that wait for the device;
-* :func:`force` — copy a result to the host;
-* :func:`measure_throughput` — best-of-``reps`` audio-seconds per second
-  with a warm-up and per-rep inputs.
+  activities), written into ``log_dir`` as a Chrome trace with the program's
+  spans and counters beside the profiler's events; the profile is what the
+  context yields, for ``key_averages()``.
+
+Recording is on exactly while a ``torch.profiler`` session records (the
+flag ``torch.autograd.profiler._is_profiler_enabled``, which every thread
+sees).  Off, :func:`span` and :func:`count` read that flag and nothing else:
+no clock, no record, no ``record_function``.  On, a span keeps its name,
+its start and end on ``time.time_ns()`` (the clock of the profiler's host
+events), its thread, its parent and its request: the id of the outermost
+span it runs under, shared by every span and counter of one request or one
+song, on the packer thread too.  A span's self time (its duration less what
+its children cover) is left to the reader.  Spans are kept by the program, not as
+``record_function`` ranges: those would reach the device trace as "gpu user
+annotations" and count as device time.  Both buffers are bounded
+(:data:`CAPACITY` records each, the oldest dropped first) and thread-safe.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
+import itertools
+import json
 import os
+import threading
 import time
-from typing import Callable, Dict
+from collections import deque
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+CAPACITY = 1 << 20
+
+_clock = time.time_ns  # the profiler's host clock (epoch ns)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in the profiler's timeline."""
-    with torch.profiler.record_function(name):
-        yield
+class Span(NamedTuple):
+    """One recorded span; ``tid`` is the native thread id, as the
+    profiler's host events carry it."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    tid: int
+    id: int
+    parent: Optional[int]
+    request: int
+
+
+class Count(NamedTuple):
+    """One counter event; ``request`` is None outside any span."""
+
+    name: str
+    t_ns: int
+    value: int
+    request: Optional[int]
+
+
+_SPANS: deque = deque(maxlen=CAPACITY)
+_COUNTS: deque = deque(maxlen=CAPACITY)
+_ids = itertools.count(1)
+# (span id, request id) of the innermost open span of this context
+_current: contextvars.ContextVar[Optional[Tuple[int, int]]] = contextvars.ContextVar(
+    "tpumix_span", default=None)
+_OFF = contextlib.nullcontext()
+
+
+class _Recording:
+    __slots__ = ("name", "id", "parent", "request", "start", "token")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        outer = _current.get()
+        self.id = next(_ids)
+        self.parent, self.request = outer if outer is not None else (None, self.id)
+        self.token = _current.set((self.id, self.request))
+        self.start = _clock()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = _clock()
+        _current.reset(self.token)
+        _SPANS.append(Span(self.name, self.start, end, threading.get_native_id(), self.id,
+                           self.parent, self.request))
+        return False
+
+
+def span(name: str):
+    """A named phase: ``with span("mixer.pack"): ...``.  Recorded only while
+    a profiler session records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name)
+
+
+def count(name: str, n: int) -> None:
+    """Record the counter ``name`` at ``n`` under the current request, while
+    a profiler session records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    outer = _current.get()
+    _COUNTS.append(Count(name, _clock(), n, None if outer is None else outer[1]))
+
+
+def carry(fn: Callable) -> Callable:
+    """``fn``, to run on another thread under this thread's current span and
+    request (a pool does not carry them); ``fn`` itself while off."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return fn
+    return functools.partial(contextvars.copy_context().run, fn)
+
+
+def spans() -> List[Span]:
+    """A snapshot of the recorded spans, in the order they ended."""
+    return list(_SPANS)
+
+
+def counts() -> List[Count]:
+    """A snapshot of the recorded counter events, in order."""
+    return list(_COUNTS)
+
+
+def _write_program_events(path: str, began: int, ended: int) -> None:
+    """Add the spans and counter events recorded in ``[began, ended]`` to
+    the Chrome trace at ``path``, on its time base."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    for s in spans():
+        if began <= s.start_ns <= ended:
+            events.append({"ph": "X", "cat": "tpumix", "name": s.name, "pid": pid,
+                           "tid": s.tid, "ts": (s.start_ns - base) / 1e3,
+                           "dur": (s.end_ns - s.start_ns) / 1e3,
+                           "args": {"id": s.id, "parent": s.parent, "request": s.request}})
+    for c in counts():
+        if began <= c.t_ns <= ended:
+            events.append({"ph": "C", "cat": "tpumix", "name": c.name, "pid": pid,
+                           "ts": (c.t_ns - base) / 1e3, "args": {"value": c.value}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
 def trace_to(log_dir: str):
     """Trace the enclosed region with ``torch.profiler`` into a Chrome trace
-    ``log_dir/trace_<pid>_<time>.json``; yields the profile."""
+    ``log_dir/trace_<pid>_<time>.json`` that also holds the program's spans
+    (category ``tpumix``); yields the profile."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=activities)
+    began = _clock()
     prof.start()
     try:
         yield prof
@@ -46,99 +174,7 @@ def trace_to(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def _synchronize(result) -> None:
-    """Wait for the device of every CUDA tensor in ``result`` (a tensor or a
-    tuple, list or dict of them)."""
-    if isinstance(result, torch.Tensor):
-        if result.is_cuda:
-            torch.cuda.synchronize(result.device)
-    elif isinstance(result, dict):
-        for v in result.values():
-            _synchronize(v)
-    elif isinstance(result, (tuple, list)):
-        for v in result:
-            _synchronize(v)
-
-
-class Stopwatch:
-    """Accumulates named wall-clock sections; waits for device results."""
-
-    def __init__(self):
-        self.sections: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str, block_on=None):
-        """Time the enclosed block; with ``block_on`` (tensors, or a callable
-        returning them), the section ends when their device is done."""
-        tic = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                _synchronize(block_on() if callable(block_on) else block_on)
-            self.sections[name] = self.sections.get(name, 0.0) + time.perf_counter() - tic
-
-    def report(self) -> str:
-        total = sum(self.sections.values())
-        return "\n".join(f"{k}: {v:.3f}s ({100 * v / max(total, 1e-9):.0f}%)"
-                         for k, v in self.sections.items())
-
-
-def force(result):
-    """Copy a result (a tensor, or a tuple, list or dict of them) to the host
-    as numpy arrays: the copy waits for the device."""
-    if isinstance(result, torch.Tensor):
-        return result.detach().cpu().numpy()
-    if isinstance(result, dict):
-        return {k: force(v) for k, v in result.items()}
-    if isinstance(result, (tuple, list)):
-        return type(result)(force(v) for v in result)
-    return result
-
-
-def measure_throughput(fn: Callable, args: tuple, audio_seconds: float, reps: int = 5,
-                       warmup: int = 1, make_args: Callable[[int], tuple] = None
-                       ) -> Dict[str, float]:
-    """Best-of-``reps`` audio-seconds per second for ``fn(*args)``.
-
-    Each rep runs ``fn`` and copies its result to the host, so asynchronous
-    launches are fully counted.  Every rep sees other bytes: ``make_args(rep)``
-    supplies its inputs; without it, every floating array or tensor argument
-    is rolled by ``rep`` along its flattened order (the statistics are kept).
-    Rep ``k + 1``'s inputs are made after rep ``k``'s timed window, so at most
-    two copies of the arguments are alive.  Returns ``{"seconds": best,
-    "audio_s_per_s": rate}``."""
-
-    def _perturb(a, rep: int):
-        if isinstance(a, np.ndarray) and a.dtype.kind == "f":
-            return np.roll(a, rep)
-        if isinstance(a, torch.Tensor) and a.is_floating_point():
-            return torch.roll(a, rep)
-        return a
-
-    def _args_for(rep: int) -> tuple:
-        if make_args is not None:
-            return make_args(rep)
-        if rep == 0:
-            return args
-        return tuple(_perturb(a, rep) for a in args)
-
-    def _ready(a: tuple) -> tuple:
-        _synchronize(a)  # a roll on the card must not run inside the timed window
-        return a
-
-    for w in range(warmup):
-        force(fn(*_args_for(-1 - w)))
-    best = float("inf")
-    current = _ready(_args_for(1))
-    for rep in range(reps):
-        tic = time.perf_counter()
-        force(fn(*current))
-        best = min(best, time.perf_counter() - tic)
-        if rep + 1 < reps:
-            current = _ready(_args_for(rep + 2))
-    return {"seconds": best, "audio_s_per_s": audio_seconds / best}
+        ended = _clock()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        _write_program_events(path, began, ended)
