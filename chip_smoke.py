@@ -714,7 +714,7 @@ def phase_main_path():
     from tpumix_torch.ops.conv_block import conv_block_fused
     from tpumix_torch.ops.stft_dif import stft_features_dif
 
-    cfg = preset("scalar2s")
+    cfg = dataclasses.replace(preset("scalar2s"), conv_impl="xla")  # the cuDNN trunk
     mixer = _build_mixer(cfg, "cuda")
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is enabled on the mixer path")
@@ -777,8 +777,7 @@ def phase_main_path():
     if mae > 1e-3:
         raise AssertionError("cuda gains disagree with the CPU path")
 
-    pcfg = dataclasses.replace(cfg, conv_impl="pallas")
-    fused = _build_mixer(pcfg, "cuda")
+    fused = _build_mixer(preset("scalar2s"), "cuda")  # conv_impl="auto": K2 on the card
     fused.song_gains(stems[:, : 3 * C])
     torch.cuda.synchronize()
     stft_features_dif.launches = 0
@@ -788,11 +787,11 @@ def phase_main_path():
     t_p = time.perf_counter() - t0
     k1_p, k2_launches = stft_features_dif.launches, conv_block_fused.launches
     mae_p = float(np.abs(g_p - gains).mean())
-    log(f"[main] conv_impl=pallas: launches stft_features_dif {k1_p} conv_block_fused "
+    log(f"[main] conv_impl=auto: launches stft_features_dif {k1_p} conv_block_fused "
         f"{k2_launches}; gain MAE vs cuDNN trunk {mae_p:.3e}; gains-only "
         f"{seconds / t_p:.1f} audio-s/s ({t_p:.3f} s)")
     if k2_launches <= 0 or k1_p <= 0:
-        raise AssertionError("conv_impl='pallas' did not launch both kernels")
+        raise AssertionError("conv_impl='auto' did not launch both kernels")
     if mae_p > 1e-5:
         raise AssertionError("fused trunk gains disagree with the cuDNN trunk")
     return {"stft_features_dif": k1_launches, "conv_block_fused": k2_launches}
@@ -808,7 +807,7 @@ def phase_breakdown():
     from tpumix_torch.infer.mixer import _dequantize_on_device
     from tpumix_torch.ops.stft_dif import stft_features_dif
 
-    mixer = _build_mixer(preset("scalar2s"), "cuda")
+    mixer = _build_mixer(dataclasses.replace(preset("scalar2s"), conv_impl="xla"), "cuda")
     model, C = mixer.model, mixer.chunk_samples
     wire = torch.from_numpy(
         np.clip(np.rint(make_song(64 * 2.0, seed=4) * 32768), -32768, 32767).astype(np.int16)

@@ -344,6 +344,37 @@ def test_conv_kernel_drains_the_tensor_core_accumulators(cuda_device):
 # --- on any host -------------------------------------------------------------
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [64, 1])  # a mixer's segment; StreamingMixer's
+def test_auto_trunk_is_k2_and_matches_xla(cuda_device, chunks):
+    """``conv_impl="auto"`` on the card: blocks 2-5 of ``scalar2s`` launch
+    K2, block 1 and the ``"xla"`` model none, and the gains agree with
+    ``"xla"``'s at K2's tolerance.  Seeded weights: on random features the
+    shipped checkpoints' heads give their biases alone."""
+    from tpumix_torch.config import preset
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.utils.device import disable_tf32
+
+    disable_tf32()
+    cfg = preset("scalar2s")
+    assert cfg.conv_impl == "auto"
+    g = torch.Generator().manual_seed(chunks)
+    x = (20.0 * torch.randn((chunks, 4, 1025, cfg.num_frames), generator=g) - 40.0).to(
+        cuda_device).contiguous(memory_format=torch.channels_last)
+    gains, launches = {}, {}
+    for impl in ("auto", "xla"):
+        model = build_model(dataclasses.replace(cfg, conv_impl=impl),
+                            generator=torch.Generator().manual_seed(1))
+        model = model.to(cuda_device, memory_format=torch.channels_last).eval()
+        before = conv_block_fused.launches
+        with torch.inference_mode():
+            gains[impl] = model.gains(x).cpu()
+        launches[impl] = conv_block_fused.launches - before
+    assert launches == {"auto": 4, "xla": 0}
+    assert gains["auto"].shape == (chunks, 4) and bool(gains["xla"].abs().max() > 0.1)
+    np.testing.assert_allclose(gains["auto"].numpy(), gains["xla"].numpy(), rtol=1e-4, atol=5e-5)
+
+
 def test_wrappers_take_the_plain_version_on_cpu():
     x = torch.from_numpy(_audio(rows=2, seconds=0.5))
     cfg = FrontendConfig(hop_length=512)

@@ -1,7 +1,8 @@
 """The port's scalar models against flax ``apply``: every preset, random
 weights carried across by ``state_dict_from_jax``, at a narrow input.  Gains
 agree within 1e-4 (f32 reassociation only), with both trunk lowerings; all
-five shipped scalar checkpoints load into the port."""
+five shipped scalar checkpoints load into the port.  ``conv_impl="auto"``
+is ``"xla"`` on the CPU and in training, and K2 for blocks 2-5 on the card."""
 
 import dataclasses
 
@@ -15,6 +16,7 @@ from tpumix.models.convert import flax_scalar_to_torch as jax_flax_scalar_to_tor
 from tpumix.models.registry import build_model as jax_build_model
 from tpumix_torch.assets import checkpoint_path, load_checkpoint
 from tpumix_torch.config import preset
+from tpumix_torch.models.blocks import takes_fused_kernel
 from tpumix_torch.models.convert import flax_scalar_to_torch, state_dict_from_jax
 from tpumix_torch.models.registry import build_model, example_feature_shape
 
@@ -100,4 +102,98 @@ def test_registry_contract():
     b = build_model(preset("scalar1s"), generator=torch.Generator().manual_seed(3))
     for (ka, va), (_, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(va, vb), ka
-    assert a.conv_b5.conv_impl == "xla"  # "auto" -> F.conv2d
+    # "auto" reaches the blocks, which decide at forward time (K2 on the card
+    # in eval mode, F.conv2d elsewhere: the tests below)
+    assert all(getattr(a, f"conv_b{i}").conv_impl == "auto" for i in range(1, 6))
+
+
+def _auto_and_xla(name, features, seed):
+    variables = _jax_variables(name, features, seed=seed)
+    models = {}
+    for impl in ("auto", "xla"):
+        models[impl] = build_model(dataclasses.replace(preset(name), conv_impl=impl), in_shape=FT)
+        models[impl].load_state_dict(state_dict_from_jax(variables))
+    return models
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_auto_on_the_cpu_is_xla_bit_for_bit(features, name):
+    models = _auto_and_xla(name, features, seed=11)
+    x = torch.from_numpy(features)
+    with torch.no_grad():
+        got = {impl: m.eval()(x) for impl, m in models.items()}
+    for a, b in zip(got["auto"], got["xla"]):
+        assert torch.equal(a, b)
+    blocks = [getattr(models["auto"], f"conv_b{i}") for i in range(1, 6)]
+    assert all(b._packed is None for b in blocks)  # K2's operands never made
+
+
+def test_auto_in_training_mode_is_xla_bit_for_bit(features):
+    models = _auto_and_xla("scalar2s", features, seed=12)
+    x = torch.from_numpy(features)
+    out = {}
+    for impl, m in models.items():
+        m.train()
+        torch.manual_seed(5)  # the same dropout masks
+        gains = m.gains(x)
+        gains.sum().backward()
+        out[impl] = (gains.detach(), m.conv_b5.conv.weight.grad, m.conv_b5.bn.running_mean)
+    for a, b in zip(out["auto"], out["xla"]):
+        assert torch.equal(a, b)
+    assert models["auto"].conv_b5._packed is None
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("device,training,grad,stride,dilation,x_dtype,cin,cout,takes", [
+    ("cuda", False, False, (1, 1), (1, 1), F32, 16, 32, True),  # block 2 on the card, eval
+    ("cuda", False, False, (1, 1), (1, 1), F32, 64, 128, True),  # block 5
+    ("cpu", False, False, (1, 1), (1, 1), F32, 16, 32, False),  # the CPU: F.conv2d
+    ("cuda", True, True, (1, 1), (1, 1), F32, 16, 32, False),  # training
+    ("cuda", False, True, (1, 1), (1, 1), F32, 16, 32, False),  # eval, gradient recorded
+    ("cuda", False, False, (2, 2), (2, 2), F32, 4, 16, False),  # block 1 of the 2 s models
+    ("cuda", False, False, (2, 2), (1, 1), F32, 16, 16, False),  # stride 2 alone
+    ("cuda", False, False, (1, 1), (2, 2), F32, 16, 16, False),  # dilation 2 alone
+    ("cuda", False, False, (1, 1), (1, 1), BF16, 16, 32, False),  # bfloat16 compute
+    ("cuda", False, False, (1, 1), (1, 1), F32, 6, 32, False),  # the launcher's Cin % 4
+    ("cuda", False, False, (1, 1), (1, 1), F32, 16, 30, False),  # and Cout % 4
+])
+def test_auto_takes_the_fused_kernel_only_where_it_applies(device, training, grad, stride,
+                                                           dilation, x_dtype, cin, cout, takes):
+    assert takes_fused_kernel("auto", device, training, grad, stride, dilation, x_dtype, F32,
+                              cin, cout) is takes
+    # "pallas" keeps the JAX package's conditions (any device, no channel or
+    # gradient test); "xla" and the khgemm lowerings never fuse
+    pallas = not training and stride == dilation == (1, 1) and x_dtype == F32
+    assert takes_fused_kernel("pallas", device, training, grad, stride, dilation, x_dtype, F32,
+                              cin, cout) is pallas
+    for impl in ("xla", "khgemm", "khgemm_hybrid", "khgemm_int8"):
+        assert not takes_fused_kernel(impl, device, training, grad, stride, dilation, x_dtype,
+                                      F32, cin, cout)
+
+
+@pytest.mark.parametrize("name", ["scalar1s", "scalar2s"])
+def test_auto_routes_blocks_2_to_5_through_the_fused_kernel_on_the_card(features, name,
+                                                                       monkeypatch):
+    """The decision each block takes from its own input, with a CPU tensor
+    standing in for a CUDA one: blocks 2-5 take K2's entry (its float64 plain
+    version here), block 1 stays ``F.conv2d``, and the gains agree with
+    ``"xla"`` within K2's tolerance."""
+    from tpumix_torch.models import blocks
+
+    real = blocks.takes_fused_kernel
+    monkeypatch.setattr(blocks, "takes_fused_kernel",
+                        lambda impl, device, *a: real(impl, "cuda" if device == "cpu" else device,
+                                                      *a))
+    models = _auto_and_xla(name, features, seed=13)
+    x = torch.from_numpy(features)
+    with torch.no_grad():
+        got = {impl: m.eval().gains(x) for impl, m in models.items()}
+    packed = [getattr(models["auto"], f"conv_b{i}")._packed is not None for i in range(1, 6)]
+    assert packed == [False, True, True, True, True]
+    np.testing.assert_allclose(got["auto"].numpy(), got["xla"].numpy(), rtol=1e-4, atol=5e-5)
+    with torch.enable_grad():  # a recorded gradient keeps every block on F.conv2d
+        grads = models["auto"].gains(x)
+    assert grads.requires_grad
+    np.testing.assert_array_equal(grads.detach().numpy(), got["xla"].numpy())

@@ -127,9 +127,11 @@ class ModelConfig:
     # flax retained fraction 0.10 == torch BatchNorm2d(momentum=0.90)
     bn_momentum: float = 0.10
     use_dropout: bool = True
-    # conv lowering: "auto" and "xla" = F.conv2d + BN + ReLU (cuDNN on the
-    # card); "pallas" = the hand-written fused conv+BN+ReLU kernel
+    # conv lowering: "xla" = F.conv2d + BN + ReLU (cuDNN on the card);
+    # "pallas" = the hand-written fused conv+BN+ReLU kernel
     # (tpumix_torch/ops/conv_block.py) for eligible blocks, as in JAX;
+    # "auto" = that kernel for eval-mode blocks on the card, else "xla"
+    # (tpumix_torch/models/blocks.py::takes_fused_kernel);
     # "khgemm" / "khgemm_hybrid" / "khgemm_int8" = the kh-unrolled GEMM
     # lowerings (tpumix_torch/ops/conv_khgemm.py; int8 is inference only)
     conv_impl: str = "auto"

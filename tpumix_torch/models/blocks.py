@@ -4,8 +4,9 @@ ConvBlock2d is Conv2d(VALID) -> BatchNorm(eps 1e-3, torch momentum 0.90 ==
 flax retained fraction 0.10) -> ReLU -> Dropout (train only), reference
 model_scalar_1s.py:151-190.  The trunk runs in ``torch.channels_last``, so the
 NHWC view the fused kernel and the khgemm lowerings take is free.  In
-training mode the fused kernel's blocks (``conv_impl="pallas"``) are
-``F.conv2d`` + BN + ReLU (+ dropout): the kernel is inference only.
+training mode the fused kernel's blocks (``conv_impl="pallas"`` and
+``"auto"``) are ``F.conv2d`` + BN + ReLU (+ dropout): the kernel is inference
+only.
 The ResNet family's ``BasicBlock`` and ``Bottleneck`` are ``F.conv2d`` + BN
 throughout, as in the JAX package (plain ``nn.Conv``, no Pallas kernel).
 """
@@ -28,8 +29,8 @@ from tpumix_torch.ops.conv_block import (
 
 BN_EPS = 1e-3
 
-#: every ``conv_impl`` a block takes; "auto" is resolved by the registry
-CONV_IMPLS = ("xla", "pallas", "khgemm", "khgemm_hybrid", "khgemm_int8")
+#: every ``conv_impl`` a block takes
+CONV_IMPLS = ("auto", "xla", "pallas", "khgemm", "khgemm_hybrid", "khgemm_int8")
 # the khgemm lowerings, by the ``vjp`` of tpumix_torch/ops/conv_khgemm.py::conv2d
 _KHGEMM_VJP = {"khgemm": "khgemm", "khgemm_hybrid": "xla", "khgemm_int8": "int8"}
 
@@ -41,6 +42,31 @@ INFERENCE_ONLY = (
 
 def _pair(k: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
     return (k, k) if isinstance(k, int) else tuple(k)
+
+
+def takes_fused_kernel(conv_impl: str, device_type: str, training: bool, records_grad: bool,
+                       stride: Tuple[int, int], dilation: Tuple[int, int],
+                       x_dtype: torch.dtype, w_dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Whether a :class:`ConvBlock2d` runs the fused conv+BN+ReLU kernel K2
+    (tpumix_torch/ops/conv_block.py) for an input it sees.
+
+    ``"pallas"`` takes it for every block the JAX package fuses: eval mode,
+    stride 1, dilation 1, float32 (tpumix/models/blocks.py:166-173); on the
+    CPU that is the kernel's float64 plain version.  ``"auto"`` takes it on
+    the card alone, and only where it computes what ``F.conv2d`` + BN + ReLU
+    would: no gradient is recorded (the kernel has no backward), the channel
+    counts are the launcher's (divisible by 4).  There it is float32-faithful
+    (3xTF32) and runs the scalar trunk's blocks 2-5 about 3x faster than
+    cuDNN's float32 convolutions (PERF.md, section 6).  Everywhere else
+    ``"auto"`` is ``"xla"``: the CPU, training, block 1 (stride 2, dilation
+    2), bfloat16."""
+    if conv_impl not in ("pallas", "auto"):
+        return False
+    eligible = (not training and stride == (1, 1) and dilation == (1, 1)
+                and x_dtype == torch.float32 and w_dtype == torch.float32)
+    if conv_impl == "pallas" or not eligible:
+        return eligible
+    return device_type == "cuda" and not records_grad and cin % 4 == 0 and cout % 4 == 0
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -129,13 +155,14 @@ def use_global_batchnorm(model: nn.Module, axis) -> None:
 class ConvBlock2d(nn.Module):
     """Conv2d(VALID) -> BatchNorm -> ReLU -> Dropout(train-only).
 
-    ``conv_impl="pallas"`` runs eligible blocks (eval mode, stride 1,
-    dilation 1, float32 — the conditions of tpumix/models/blocks.py:166-173)
-    through the fused conv+BN+ReLU kernel with BN folded; its other blocks,
-    training mode included, are ``F.conv2d`` + BN + ReLU (the JAX package
-    trains them through khgemm's hand VJP, which computes the same function).
-    The folded and packed operands of the kernel are made once and kept
-    until a parameter or a BN buffer changes.
+    ``conv_impl="pallas"`` and ``"auto"`` run the blocks that
+    :func:`takes_fused_kernel` admits through the fused conv+BN+ReLU kernel
+    with BN folded; their other blocks, training mode included, are
+    ``F.conv2d`` + BN + ReLU (the JAX package trains them through khgemm's
+    hand VJP, which computes the same function).  ``"auto"`` admits eval-mode
+    float32 blocks on the card only, so on the CPU it is ``"xla"``.  The
+    folded and packed operands of the kernel are made once and kept until a
+    parameter or a BN buffer changes.
 
     ``"khgemm"``, ``"khgemm_hybrid"`` and ``"khgemm_int8"`` lower the
     convolution through tpumix_torch/ops/conv_khgemm.py (stride 1 and
@@ -178,14 +205,15 @@ class ConvBlock2d(nn.Module):
         return self._packed
 
     def _fused_eligible(self, x: torch.Tensor) -> bool:
-        return (
-            self.conv_impl == "pallas"
-            and not self.training
-            and self.conv.stride == (1, 1)
-            and self.conv.dilation == (1, 1)
-            and x.dtype == torch.float32
-            and self.conv.weight.dtype == torch.float32
-        )
+        device = x.device.type
+        # the dtype the block computes in: autocast's where it is on
+        dtype = torch.get_autocast_dtype(device) if torch.is_autocast_enabled(device) else x.dtype
+        w = self.conv.weight
+        return takes_fused_kernel(
+            self.conv_impl, device, self.training,
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad),
+            self.conv.stride, self.conv.dilation, dtype, w.dtype,
+            self.conv.in_channels, self.conv.out_channels)
 
     def _khgemm(self, x: torch.Tensor) -> torch.Tensor:
         """The convolution through a khgemm lowering, in the compute dtype

@@ -49,18 +49,21 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
     """Construct the preset's model on the CPU with random weights drawn from
     ``generator`` (a generator seeded 0 when None), in eval mode, or in
     training mode (dropout on, batch statistics) when ``for_training``.  In
-    training mode the blocks of ``conv_impl="pallas"`` run ``F.conv2d``: the
-    fused kernel is inference only (blocks.py ``_fused_eligible``);
+    training mode the blocks of ``conv_impl="pallas"`` and ``"auto"`` run
+    ``F.conv2d``: the fused kernel is inference only;
     ``"khgemm_int8"`` is refused for training (``ValueError``), as in the JAX
     package.
 
     ``in_shape = (F, T)`` defaults to the preset's full spectrogram (1025
     bins x the pinned frame count); it sizes the heads' dense layers.
-    ``conv_impl="auto"`` resolves to ``"xla"`` (F.conv2d) on every device:
-    the JAX package picks khgemm on a TPU only, and which trunk the card
-    should default to is ROADMAP.md item 17.  ``resnet18`` is ``GainResNet``, whose convolutions are
-    ``F.conv2d`` whatever ``conv_impl`` says (as in the JAX package) and
-    whose BatchNorm keeps torch's default momentum."""
+    ``conv_impl="auto"`` is decided by each block at forward time
+    (blocks.py ``takes_fused_kernel``), since the model is built here on the
+    CPU and moved later: the scalar trunk's blocks 2-5 run the fused kernel
+    K2 in eval mode on the card, where it is float32-faithful and about 3x
+    faster than cuDNN; every other block, and every block on the CPU or in
+    training, runs ``F.conv2d``.  ``resnet18`` is ``GainResNet``,
+    whose convolutions are ``F.conv2d`` whatever ``conv_impl`` says (as in
+    the JAX package) and whose BatchNorm keeps torch's default momentum."""
     if cfg.name not in _SCALAR and cfg.name != "resnet18":
         raise ValueError(f"unknown model {cfg.name!r}; have {sorted([*_SCALAR, 'resnet18'])}")
     if in_shape is None:
@@ -71,10 +74,9 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
     if cfg.name == "resnet18":
         model = GainResNet(in_shape=in_shape, num_stems=cfg.num_stems, compute_dtype=dtype)
     else:
-        conv_impl = "xla" if cfg.conv_impl == "auto" else cfg.conv_impl
         model = _SCALAR[cfg.name](
             in_shape=in_shape, num_stems=cfg.num_stems, bn_momentum=cfg.bn_momentum,
-            use_dropout=cfg.use_dropout, conv_impl=conv_impl, compute_dtype=dtype,
+            use_dropout=cfg.use_dropout, conv_impl=cfg.conv_impl, compute_dtype=dtype,
         )
     if generator is None:
         generator = torch.Generator().manual_seed(0)
