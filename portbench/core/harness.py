@@ -4,7 +4,10 @@ reference, the metrics, and the result line.
 Everything that belongs to one configuration, traffic mix or metric is
 found by name: ``BENCHMARK.json`` names the cell's configuration and
 traffic; ``configs/<config>.json`` and ``traffic/<traffic>.json`` hold their
-data; the traffic's ``driver`` names a module ``drivers/<driver>.py``;
+data; the configuration's ``family`` names a module
+``reference/families/<family>.py``, which holds everything of the
+reference and the counts that depends on the model; the traffic's
+``driver`` names a module ``drivers/<driver>.py``;
 ``limits/<cell>.json`` holds the limits of the numbers compared; every
 metric is read by ``metrics/<metric>.py``.
 """
@@ -19,6 +22,8 @@ import os
 import sys
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from portbench.reference import families
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
@@ -89,6 +94,7 @@ class Cell:
         w = cells[name]
         cfg_entry = next(c for c in bench["configs"] if c["name"] == w["config"])
         config = load_json(os.path.join(root, cfg_entry["file"]))
+        families.find(config)
         folder = os.path.join(root, os.path.basename(BENCH))
         traffic = load_json(os.path.join(folder, "traffic", f"{w['traffic']}.json"))
         return cls(name, w["chips"], config, traffic, bench, folder)

@@ -1,10 +1,12 @@
 """Seeded weights, made on the device in one draw and handed to both sides.
 
-Every parameter and BN buffer named by ``reference.models.param_shapes``
-comes from one ``torch.randn`` on the device: conv and dense weights at
-lecun-normal scale (std ``1 / sqrt(fan_in)``), biases at ``bias_std``, BN
-scales ``1 + bn_scale_std * n`` and shifts ``bn_shift_std * n``.  The BN
-running statistics are then set by the reference from the seed's own audio
+Every parameter and buffer that the family's ``param_shapes`` names comes
+from one ``torch.randn`` on the device, split in that order: conv and dense
+weights at lecun-normal scale (std ``1 / sqrt(fan_in)``), biases at
+``bias_std``, BN scales ``1 + bn_scale_std * n`` and shifts
+``bn_shift_std * n``; a kind this module does not know, the family's
+``KINDS`` makes, and a kind neither knows is an error.  The BN running
+statistics are then set by the reference from the seed's own audio
 (``calibrate``), as a trained model's track its data.  The program receives
 a copy (``load_state_dict(strict=True)``); the reference keeps the dict.
 """
@@ -16,11 +18,13 @@ from typing import Dict
 
 import torch
 
-from portbench.reference import frontend, models
+from portbench.core.harness import RunError
+from portbench.reference import families, models
 
 
 def make(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     shapes = models.param_shapes(cfg)
+    own = getattr(families.of(cfg), "KINDS", {})
     wcfg = cfg["weights"]
     sizes = [math.prod(s) for s, _ in shapes.values()]
     g = torch.Generator(device=device).manual_seed(seed)
@@ -42,6 +46,11 @@ def make(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
             x = torch.ones_like(x)
         elif kind == "count":
             x = torch.zeros((), dtype=torch.long, device=device)
+        elif kind in own:
+            x = own[kind](x, shape, wcfg)
+        else:
+            raise RunError(1, f"{name}: weight kind {kind!r} is known neither to "
+                              f"core/weights.py nor to family {cfg['family']!r}")
         out[name] = x.contiguous()
     return out
 
@@ -54,7 +63,8 @@ def calibrate(weights: Dict[str, torch.Tensor], stems: torch.Tensor, cfg: Dict) 
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        models.gains(weights, frontend.chunk_features(stems, 0, n, cfg), cfg, calibrate=True)
+        x = families.of(cfg).features(stems, 0, n, cfg)
+        models.gains(weights, x, cfg, calibrate=True)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 

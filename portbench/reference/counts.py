@@ -1,14 +1,15 @@
 """Frozen operation and byte counts: the yardstick of every roofline and
-``mfu`` metric.
+``mfu`` metric.  The count of each family's model is in
+``families/<family>.py``; the peaks and the arithmetic the families share
+are here, and ``trunk_layers``, ``model_flops_per_chunk`` and
+``frontend_bytes_per_chunk`` go through the family that the configuration
+names.
 
 FLOPs are 2 per multiply-add of the convolutions and dense layers, worked
 out from a configuration's shapes alone; BatchNorm, ReLU, the residual adds
 and the frontend are not counted, so a rate read against them is a floor.
-The scalar trunk's count is a copy of the arithmetic of the port's
-``models/flops.py``, held to the reference model's pinned flatten sizes
-(10290 = 490 x 21 at 87 frames, dilation 1; 30807 = 489 x 63 at 173 frames,
-dilation 2).  Training counts a step as three forward passes (the backward
-as twice the forward), the common convention.
+Training counts a step as three forward passes (the backward as twice the
+forward), the common convention.
 
 The frontend kernel's bytes are the least it has to move: each input sample
 read once and each float32 feature written once.
@@ -18,6 +19,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+from portbench.reference import families
+
 #: dense peaks of one NVIDIA H100 SXM (data sheet, 700 W)
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
@@ -26,74 +29,42 @@ PEAK_HBM_BYTES = 3.35e12
 #: forward + backward of a training step, in forward passes
 TRAIN_PASSES = 3
 
-_PINNED_FLATTEN = {(1, 87): 10290, (2, 173): 30807}
-
 
 def frames(chunk_samples: int, hop: int) -> int:
     """Frame count of one centre-padded chunk (``1 + S // hop``)."""
     return 1 + chunk_samples // hop
 
 
-def _valid(n: int, k: int, s: int, d: int) -> int:
+def valid(n: int, k: int, s: int, d: int) -> int:
+    """Output length of a VALID convolution of kernel ``k``, stride ``s``,
+    dilation ``d`` over ``n``."""
     return (n - (d * (k - 1) + 1)) // s + 1
 
 
-def scalar_trunk_layers(cfg: Dict) -> Tuple[List[Tuple[str, int]], Tuple[int, int, int]]:
-    """Per-conv FLOPs of one ``[stems, bins, frames]`` item through the
-    scalar trunk, and the trunk's output ``(channels, H, W)``."""
-    h, w = cfg["n_fft"] // 2 + 1, frames(cfg["chunk_samples"], cfg["hop_length"])
-    frames_in = w
-    c_in = cfg["num_stems"]
-    out = []
-    for i, (c_out, k, s) in enumerate(cfg["trunk"]):
-        d = cfg["block1_dilation"] if i == 0 else 1
-        h, w = _valid(h, k, s, d), _valid(w, k, s, d)
-        out.append((f"conv{i + 1}", 2 * h * w * c_out * k * k * c_in))
-        c_in = c_out
-    pinned = _PINNED_FLATTEN.get((cfg["block1_dilation"], frames_in))
-    if pinned is not None and h * w != pinned:
-        raise AssertionError(f"trunk shape arithmetic drifted: {h}x{w} != {pinned}")
-    return out, (c_in, h, w)
-
-
-def resnet_trunk_layers(cfg: Dict) -> Tuple[List[Tuple[str, int]], Tuple[int, int, int]]:
-    """Per-conv FLOPs of one item through the ResNet stem and stages
-    (k3 pad 1 convolutions, 1x1 projection shortcuts), and the output."""
-    h, w = cfg["n_fft"] // 2 + 1, frames(cfg["chunk_samples"], cfg["hop_length"])
-    c_in = cfg["num_stems"]
-    stem = cfg["stem_width"]
-    out = [("stem", 2 * h * w * stem * 9 * c_in)]
-    c_in = stem
-    for si, (n, width, stride) in enumerate(cfg["stages"], start=1):
-        for b in range(1, n + 1):
-            s = stride if b == 1 else 1
-            h, w = (h - 1) // s + 1, (w - 1) // s + 1
-            f = 2 * h * w * width * 9 * c_in + 2 * h * w * width * 9 * width
-            if s != 1 or c_in != width:
-                f += 2 * h * w * width * c_in
-            out.append((f"layer{si}_block{b}", f))
-            c_in = width
-    return out, (c_in, h, w)
-
-
-def trunk_layers(cfg: Dict):
-    return (resnet_trunk_layers if cfg["family"] == "resnet" else scalar_trunk_layers)(cfg)
+def trunk_layers(cfg: Dict) -> Tuple[List[Tuple[str, int]], Tuple[int, int, int]]:
+    """Per-layer FLOPs of one chunk through the family's trunk, and the
+    trunk's output ``(channels, H, W)``."""
+    return families.of(cfg).trunk_layers(cfg)
 
 
 def trunk_flops_per_chunk(cfg: Dict) -> int:
     return sum(f for _, f in trunk_layers(cfg)[0])
 
 
+def heads_flops(num_heads: int, c: int, h: int, w: int) -> int:
+    """Scalar heads over a ``(c, h, w)`` map: a 1x1 conv to one channel and
+    a dense layer over the flattened map, each."""
+    return num_heads * (2 * h * w * c + 2 * h * w)
+
+
 def heads_flops_per_chunk(cfg: Dict) -> int:
-    """The scalar heads: a 1x1 conv to one channel and a dense layer over
-    the flattened map, one per stem."""
-    _, (c, h, w) = trunk_layers(cfg)
-    return cfg["num_stems"] * (2 * h * w * c + 2 * h * w)
+    """The model's FLOPs after its trunk: the heads."""
+    return model_flops_per_chunk(cfg) - trunk_flops_per_chunk(cfg)
 
 
 def model_flops_per_chunk(cfg: Dict) -> int:
     """Forward FLOPs of one chunk: trunk and heads."""
-    return trunk_flops_per_chunk(cfg) + heads_flops_per_chunk(cfg)
+    return families.of(cfg).model_flops_per_chunk(cfg)
 
 
 def train_flops_per_row(cfg: Dict) -> int:
@@ -110,4 +81,25 @@ def frontend_bytes(signals: int, samples: int, cfg: Dict) -> int:
 
 def frontend_bytes_per_chunk(cfg: Dict) -> int:
     """The frontend's bytes for one chunk of every stem."""
+    return families.of(cfg).frontend_bytes_per_chunk(cfg)
+
+
+def mono_model_flops(cfg: Dict) -> int:
+    """A family's ``model_flops_per_chunk`` where its trunk feeds one scalar
+    head a stem: the trunk's FLOPs and the heads'."""
+    layers, (c, h, w) = trunk_layers(cfg)
+    return sum(f for _, f in layers) + heads_flops(cfg["num_stems"], c, h, w)
+
+
+def stft_frontend_bytes(cfg: Dict) -> int:
+    """A family's ``frontend_bytes_per_chunk`` where its input is the dB STFT
+    of every stem's chunk."""
     return frontend_bytes(cfg["num_stems"], cfg["chunk_samples"], cfg)
+
+
+def __getattr__(name: str):
+    """``<family>_trunk_layers``: that family's ``trunk_layers``."""
+    family = name[:-len("_trunk_layers")] if name.endswith("_trunk_layers") else ""
+    if family and family in families.available():
+        return families.of({"family": family}).trunk_layers
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,18 +1,13 @@
 """Plain forward passes of the gain models, from a weight dict, in float32
-with ``torch.nn.functional`` only (deep-audio-mixer models/model_scalar_2s.py
-and models/model_resnet.py).
+with ``torch.nn.functional`` only.  Each family's layers are in
+``families/<family>.py``; ``param_shapes`` and ``gains`` go through the
+family that the configuration names.  What the families share is here: the
+BatchNorm, evaluating or calibrating, and the scalar heads.
 
 The parameter names follow the published flax/torch module names, which
 the port's modules also use, so the benchmark's seeded weights load into
 the program by name (``load_state_dict(strict=True)`` checks that both sides
 agree on every name and shape).
-
-* scalar: five VALID ConvBlocks (conv + bias -> BatchNorm -> ReLU), block 1
-  stride 2 with a dilation, then per stem a 1x1 conv to one channel -> ReLU
-  -> flatten (NCHW order) -> dense to one gain.
-* resnet: a k3 pad-1 stem conv -> BN -> ReLU, BasicBlocks (conv3x3(stride)
-  -> BN -> ReLU -> conv3x3 -> BN, plus a 1x1 strided projection -> BN where
-  the shape changes, -> ReLU), then the same heads.
 
 With ``calibrate=True`` every BatchNorm takes the batch's mean and biased
 variance and writes them into the dict as its running statistics: the
@@ -23,14 +18,15 @@ model's do.
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
+from portbench.reference import families
 
-def _bn(shapes, prefix: str, c: int) -> None:
+
+def bn_shapes(shapes, prefix: str, c: int) -> None:
     shapes[f"{prefix}.weight"] = ((c,), "bn_scale")
     shapes[f"{prefix}.bias"] = ((c,), "bn_shift")
     shapes[f"{prefix}.running_mean"] = ((c,), "bn_mean")
@@ -38,7 +34,9 @@ def _bn(shapes, prefix: str, c: int) -> None:
     shapes[f"{prefix}.num_batches_tracked"] = ((), "count")
 
 
-def _heads(shapes, cfg: Dict, c: int, flat: int) -> None:
+def head_shapes(shapes, cfg: Dict, c: int, flat: int) -> None:
+    """Per stem a 1x1 conv to one channel -> ReLU -> flatten (NCHW order)
+    -> dense to one gain."""
     for i in range(1, cfg["num_stems"] + 1):
         shapes[f"head{i}.conv.weight"] = ((1, c, 1, 1), "weight")
         shapes[f"head{i}.conv.bias"] = ((1,), "bias")
@@ -46,40 +44,7 @@ def _heads(shapes, cfg: Dict, c: int, flat: int) -> None:
         shapes[f"head{i}.fc.bias"] = ((1,), "bias")
 
 
-def param_shapes(cfg: Dict):
-    """``name -> (shape, kind)`` of every parameter and BN buffer."""
-    from portbench.reference.counts import trunk_layers
-
-    shapes: OrderedDict = OrderedDict()
-    c_in = cfg["num_stems"]
-    if cfg["family"] == "resnet":
-        stem = cfg["stem_width"]
-        shapes["stem_conv.weight"] = ((stem, c_in, 3, 3), "weight")
-        _bn(shapes, "stem_bn", stem)
-        c_in = stem
-        for si, (n, width, stride) in enumerate(cfg["stages"], start=1):
-            for b in range(1, n + 1):
-                p = f"layer{si}_block{b}"
-                shapes[f"{p}.conv1.weight"] = ((width, c_in, 3, 3), "weight")
-                _bn(shapes, f"{p}.bn1", width)
-                shapes[f"{p}.conv2.weight"] = ((width, width, 3, 3), "weight")
-                _bn(shapes, f"{p}.bn2", width)
-                if (stride if b == 1 else 1) != 1 or c_in != width:
-                    shapes[f"{p}.shortcut_conv.weight"] = ((width, c_in, 1, 1), "weight")
-                    _bn(shapes, f"{p}.shortcut_bn", width)
-                c_in = width
-    else:
-        for i, (c_out, k, _) in enumerate(cfg["trunk"], start=1):
-            shapes[f"conv_b{i}.conv.weight"] = ((c_out, c_in, k, k), "weight")
-            shapes[f"conv_b{i}.conv.bias"] = ((c_out,), "bias")
-            _bn(shapes, f"conv_b{i}.bn", c_out)
-            c_in = c_out
-    _, (c, h, w) = trunk_layers(cfg)
-    _heads(shapes, cfg, c, h * w)
-    return shapes
-
-
-class _Net:
+class Net:
     """Applies the layers of one weight dict; BN eval or calibrating."""
 
     def __init__(self, w: Dict[str, torch.Tensor], eps: float, calibrate: bool):
@@ -105,40 +70,15 @@ class _Net:
         return torch.cat(out, dim=-1)
 
 
-def scalar_gains(w: Dict[str, torch.Tensor], x: torch.Tensor, cfg: Dict,
-                 calibrate: bool = False) -> torch.Tensor:
-    net = _Net(w, cfg["bn_eps"], calibrate)
-    h = x
-    for i, (_, _, s) in enumerate(cfg["trunk"], start=1):
-        d = cfg["block1_dilation"] if i == 1 else 1
-        h = F.conv2d(h, w[f"conv_b{i}.conv.weight"], w[f"conv_b{i}.conv.bias"],
-                     stride=s, dilation=d)
-        h = torch.relu(net.bn(h, f"conv_b{i}.bn"))
-    return net.heads(h, cfg["num_stems"])
-
-
-def resnet_gains(w: Dict[str, torch.Tensor], x: torch.Tensor, cfg: Dict,
-                 calibrate: bool = False) -> torch.Tensor:
-    net = _Net(w, cfg["bn_eps"], calibrate)
-    h = torch.relu(net.bn(F.conv2d(x, w["stem_conv.weight"], padding=1), "stem_bn"))
-    for si, (n, _, stride) in enumerate(cfg["stages"], start=1):
-        for b in range(1, n + 1):
-            p = f"layer{si}_block{b}"
-            s = stride if b == 1 else 1
-            out = torch.relu(net.bn(F.conv2d(h, w[f"{p}.conv1.weight"], stride=s, padding=1),
-                                    f"{p}.bn1"))
-            out = net.bn(F.conv2d(out, w[f"{p}.conv2.weight"], padding=1), f"{p}.bn2")
-            if f"{p}.shortcut_conv.weight" in w:
-                h = net.bn(F.conv2d(h, w[f"{p}.shortcut_conv.weight"], stride=s),
-                           f"{p}.shortcut_bn")
-            h = torch.relu(out + h)
-    return net.heads(h, cfg["num_stems"])
+def param_shapes(cfg: Dict):
+    """``name -> (shape, kind)`` of every parameter and BN buffer."""
+    return families.of(cfg).param_shapes(cfg)
 
 
 def gains(w: Dict[str, torch.Tensor], x: torch.Tensor, cfg: Dict,
           calibrate: bool = False) -> torch.Tensor:
-    """``x [N, stems, bins, frames]`` float32 features -> ``[N, stems]``
-    model-scalar gains."""
-    fn = resnet_gains if cfg["family"] == "resnet" else scalar_gains
+    """The family's features of ``N`` chunks -> its ``N`` outputs
+    (``[N, stems]`` model-scalar gains for the scalar heads)."""
+    fn = families.of(cfg).forward
     with torch.no_grad():
         return fn(w, x.contiguous(), cfg, calibrate)

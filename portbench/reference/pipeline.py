@@ -1,5 +1,6 @@
-"""The reference's whole path for one song or clip: chunk features, gains,
-the epilogue; and the comparison numbers that decide ``correct``.
+"""The reference's whole path for one song or clip, through the family
+that the configuration names: chunk features, the model's outputs, the
+epilogue; and the comparison numbers that decide ``correct``.
 
 Gains exist for chunks ``0 .. S // C - 2`` (deep-audio-mixer keeps no gain
 for the last chunk); chunk ``i`` is samples ``[i C, (i + 1) C)``, framed on
@@ -13,7 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from portbench.reference import epilogue, frontend, models
+from portbench.reference import epilogue, families, models
 
 
 def precision(tf32: bool) -> None:
@@ -25,31 +26,45 @@ def precision(tf32: bool) -> None:
 
 def song_gains(weights: Dict[str, torch.Tensor], stems: np.ndarray, cfg: Dict,
                device, block: int = 16) -> np.ndarray:
-    """``stems [stems, S]`` -> ``[n_gains, stems]`` model scalars (float32)."""
+    """``stems [stems, S]`` -> ``[n_gains, ...]`` the model's outputs
+    (float32; ``[n_gains, stems]`` model scalars for the scalar heads)."""
     n_gains = stems.shape[-1] // cfg["chunk_samples"] - 1
     if n_gains <= 0:
         return np.zeros((0, stems.shape[0]), np.float32)
+    features = families.of(cfg).features
     x = torch.as_tensor(np.asarray(stems, dtype=np.float32), device=device)
     out = []
     for lo in range(0, n_gains, block):
         n = min(block, n_gains - lo)
-        out.append(models.gains(weights, frontend.chunk_features(x, lo, n, cfg), cfg))
+        out.append(models.gains(weights, features(x, lo, n, cfg), cfg))
     return torch.cat(out).cpu().numpy()
 
 
 def song(weights, stems: np.ndarray, cfg: Dict, device) -> Tuple[np.ndarray, np.ndarray]:
-    """``(smoothed curves [stems, n_gains], peak-normalised mix [S])``."""
-    num_chunks = stems.shape[-1] // cfg["chunk_samples"]
-    curves = epilogue.smooth(epilogue.amplitudes(song_gains(weights, stems, cfg, device)),
-                             num_chunks, cfg["savgol_polyorder"])
-    return curves, epilogue.mixdown(stems, curves)
+    """``(curves, mix)`` of the song ``stems [stems, S]``: what
+    ``mix_song_smooth_device`` returns."""
+    return families.of(cfg).song(weights, stems, cfg, device)
 
 
 def clip(weights, stems: np.ndarray, cfg: Dict, device) -> Tuple[np.ndarray, np.ndarray]:
-    """``(raw amplitude gains, smoothed) [stems, n_gains]``."""
+    """``(raw, smoothed)`` gains of the clip ``stems [stems, S]``: what
+    ``MixingService.gains`` returns."""
+    return families.of(cfg).clip(weights, stems, cfg, device)
+
+
+def mono_clip(weights, stems: np.ndarray, cfg: Dict, device) -> Tuple[np.ndarray, np.ndarray]:
+    """A family with one model scalar a stem and chunk: ``(raw amplitude
+    gains, smoothed) [stems, n_gains]``."""
     num_chunks = stems.shape[-1] // cfg["chunk_samples"]
     raw = epilogue.amplitudes(song_gains(weights, stems, cfg, device))
     return raw, epilogue.smooth(raw, num_chunks, cfg["savgol_polyorder"])
+
+
+def mono_song(weights, stems: np.ndarray, cfg: Dict, device) -> Tuple[np.ndarray, np.ndarray]:
+    """The same family's ``(smoothed curves [stems, n_gains],
+    peak-normalised mono mix [S])``."""
+    curves = mono_clip(weights, stems, cfg, device)[1]
+    return curves, epilogue.mixdown(stems, curves)
 
 
 def rel_err(got, ref) -> float:

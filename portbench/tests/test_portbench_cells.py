@@ -31,8 +31,10 @@ def test_traced_run_reports_the_trace_keys():
     assert list(line) == KEYS + ["breakdown", "checks"]
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
-    # on the CPU no device operation runs: no roofline or idle share is made up
-    assert set(line["metrics"]) == {"mfu.clips"}
+    # on the CPU no device operation runs: no roofline or idle share is made
+    # up; the program's spans and counters are recorded on the host
+    assert set(line["metrics"]) == {"mfu.clips", "pack_ms.clips", "epilogue_ms.clips",
+                                    "device_wait_ms.clips", "useful_chunks.clips"}
 
 
 @contextlib.contextmanager

@@ -47,11 +47,23 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_only_the_program_module_imports_the_program():
-    """(The tests break the program's path on purpose, so they may.)"""
+    """The program's calls, the check that it is importable, and the reader
+    of its spans and counters.  (The tests break the program's path on
+    purpose, so they may.)"""
     users = {os.path.relpath(p, BENCH) for p in sources()
              if "tpumix_torch" in imported_top_levels(p)
              and not os.path.relpath(p, BENCH).startswith("tests")}
-    assert users <= {os.path.join("core", "program.py"), os.path.join("core", "harness.py")}
+    assert users <= {os.path.join("core", "program.py"), os.path.join("core", "harness.py"),
+                     os.path.join("core", "program_spans.py")}
+
+
+def test_the_scan_covers_every_family():
+    from portbench.reference import families
+
+    scanned = {os.path.relpath(p, BENCH) for p in sources("reference")}
+    found = families.available()
+    assert found
+    assert {os.path.join("reference", "families", f"{f}.py") for f in found} <= scanned
 
 
 def test_the_scan_catches_a_forbidden_import(tmp_path):

@@ -99,7 +99,8 @@ def test_metric_selection_per_run():
     cell = harness.Cell.find("scalar2s.clips")
     assert [m["name"] for m in cell.metrics(False)] == ["clip_p90_ms", "setup_s"]
     traced = {m["name"] for m in cell.metrics(True)}
-    assert traced == {"trunk_roofline.clips", "mfu.clips", "device_idle.clips"}
+    assert traced == {"trunk_roofline.clips", "mfu.clips", "device_idle.clips", "pack_ms.clips",
+                      "epilogue_ms.clips", "device_wait_ms.clips", "useful_chunks.clips"}
 
 
 def test_new_config_traffic_and_metric_are_files_and_entries_alone(tmp_path):
