@@ -695,6 +695,105 @@ def phase_k3_sizes(rates, smi):
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)  {ms / b_ms:.1f}x the bound  ({smi})")
 
 
+#: VGGish's conv blocks at one 64-chunk segment of 16 tracks (1024 examples):
+#: (name, NCHW input, output channels)
+VGGISH_SHAPES = (("conv1", (1024, 1, 96, 64), 64), ("conv2", (1024, 64, 48, 32), 128),
+                 ("conv3_1", (1024, 128, 24, 16), 256), ("conv3_2", (1024, 256, 24, 16), 256),
+                 ("conv4_1", (1024, 256, 12, 8), 512), ("conv4_2", (1024, 512, 12, 8), 512))
+
+
+def phase_dmc(smi):
+    """The Differentiable Mixing Console's trunk and entry on the card.  Per
+    VGGish conv block at one segment's shape: the launcher's route, K2 on the
+    1-padded input (scale 1, shift = bias, the pad included in its time)
+    against the float64 plain version on 64 examples, and the times of K2
+    and of cuDNN's SAME convolution + ReLU in float32 (TF32 off), in turns:
+    the readings ``models/blocks.py::K2_SIMT_FASTER`` rests on.  Then a 16-track
+    8 s session through ``SongMixer(preset("dmc_vggish"))`` on the card
+    against the same mixer's CPU path."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumix_torch.config import MixConfig, preset
+    from tpumix_torch.infer.mixer import SongMixer
+    from tpumix_torch.models.blocks import takes_fused_kernel
+    from tpumix_torch.models.registry import build_model
+    from tpumix_torch.ops.conv_block import (
+        conv_block_fused_packed,
+        conv_block_fused_plain,
+        conv_block_route,
+        pack_conv_weights,
+    )
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, xs, cout in VGGISH_SHAPES:
+        n, cin, h, w = xs
+        x = torch.relu(torch.randn(xs, device="cuda", generator=g)).contiguous(
+            memory_format=torch.channels_last)
+        wt = (torch.randn((cout, cin, 3, 3), device="cuda", generator=g)
+              * float(np.sqrt(2.0 / (9 * cin)))).contiguous(memory_format=torch.channels_last)
+        bias = 0.05 * torch.randn(cout, device="cuda", generator=g)
+        hwio = wt.permute(2, 3, 1, 0)
+        route = conv_block_route((n, h + 2, w + 2, cin), (3, 3, cin, cout))
+        auto = takes_fused_kernel("auto", "cuda", False, False, (1, 1), (1, 1), torch.float32,
+                                  torch.float32, cin, cout, route=route)
+
+        def cudnn():
+            return torch.relu(F.conv2d(x, wt, bias, padding=1))
+
+        line = f"[dmc] {name} {xs} -> {cout}: route {route}, auto takes K2 {auto}"
+        if route != "none":
+            packed = pack_conv_weights(hwio.contiguous(), torch.ones_like(bias), bias)
+
+            def k2():
+                nhwc = F.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+                return conv_block_fused_packed(nhwc, packed)
+
+            few = x[:64].permute(0, 2, 3, 1)
+            ref = conv_block_fused_plain(F.pad(few, (0, 0, 1, 1, 1, 1)), hwio,
+                                         torch.ones_like(bias), bias)
+            err = float((k2()[:64] - ref).abs().max() / ref.abs().max())
+            lib_err = float((cudnn()[:64].permute(0, 2, 3, 1) - ref).abs().max()
+                            / ref.abs().max())
+            ka = time_ms(k2, reps=10, warmup=2)
+            la = time_ms(cudnn, reps=10, warmup=2)
+            lb = time_ms(cudnn, reps=10, warmup=2)
+            kb = time_ms(k2, reps=10, warmup=2)
+            flops = 2.0 * n * h * w * 9 * cin * cout
+            ms, lib_ms = 0.5 * (ka + kb), 0.5 * (la + lb)
+            line += (f"; vs plain (f64), of the output's peak: K2 {err:.2e}, cuDNN {lib_err:.2e}; "
+                     f"K2 {ms:.3f} ms ({ka:.3f}, {kb:.3f}; {flops / ms / 1e9:.1f} TFLOP/s)  "
+                     f"cuDNN {lib_ms:.3f} ms ({la:.3f}, {lb:.3f}; {flops / lib_ms / 1e9:.1f} "
+                     f"TFLOP/s)  K2 at {lib_ms / ms:.2f}x cuDNN's speed")
+            if err > 1e-5:
+                raise AssertionError(f"K2 disagrees with its plain version at VGGish {name}")
+        else:
+            line += f"; cuDNN {time_ms(cudnn, reps=10, warmup=2):.3f} ms"
+        log(f"{line}  ({smi})")
+        del x
+    torch.cuda.empty_cache()
+
+    cfg = preset("dmc_vggish")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    song = np.stack([make_song(8.0, seed)[0] for seed in range(16)]).astype(np.float32)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        mixer = SongMixer(model, cfg, mix_cfg=MixConfig(chunk_length_s=cfg.chunk_length_s),
+                          device=device)
+        t0 = time.perf_counter()
+        tracks, mix, curves = mixer.mix_song_smooth_device(song)
+        outs[device] = (mix.cpu().numpy(), curves.cpu().numpy())
+        log(f"[dmc] SongMixer({cfg.name}) on {device}: 16 tracks x 8 s -> mixed tracks "
+            f"{tuple(tracks.shape)}, mix {tuple(mix.shape)}, curves {tuple(curves.shape)} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    gaps = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(outs["cuda"], outs["cpu"])]
+    log(f"[dmc] card vs CPU, of the peak: mix {gaps[0]:.2e}, curves {gaps[1]:.2e}  "
+        f"(phase {time.perf_counter() - t_phase:.1f} s; {smi})")
+    if not all(np.isfinite(v).all() for v in outs["cuda"]) or max(gaps) > 1e-4:
+        raise AssertionError("SongMixer(dmc_vggish) on the card disagrees with its CPU path")
+
+
 def _build_mixer(cfg, device, mix_cfg=None, transfer_dtype="float32", **kw):
     from tpumix_torch.assets import load_checkpoint
     from tpumix_torch.infer.mixer import SongMixer
@@ -2566,7 +2665,7 @@ def phase_eval(smi):
 
 
 PHASES = ("k1", "k2", "k3", "k4", "hyb", "main", "time", "study", "cli", "train", "synth",
-          "dp", "sp", "serve", "eval")
+          "dp", "sp", "serve", "eval", "dmc")
 MULTI_CARD_PHASES = ("dp4",)  # asked for by name only: they need four cards
 
 
@@ -2686,6 +2785,8 @@ def main(argv=None) -> int:
             launches[kname] = launches.get(kname, 0) + n
     if "eval" in phases:
         phase_eval(smi)
+    if "dmc" in phases:
+        phase_dmc(smi)
     if "dp4" in phases:
         phase_dp4(smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -246,8 +246,9 @@ def test_device_mixer_counts_chunks_under_its_song():
     stems = np.stack([t[0] for t in _tracks(6.5).values()])
     with torch.profiler.profile():
         mixer.mix_song_smooth_device(stems)
-    (song,) = profiling.spans()
+    stage, song = profiling.spans()  # in the order they ended: the staging first
     assert song.name == "mixer.song" and song.parent is None
+    assert stage.name == "mixer.stage" and stage.parent == song.id
     cs = profiling.counts()
     assert [(c.name, c.value) for c in cs] == [("mixer.chunks_real", 4), ("mixer.chunks_run", 4),
                                                ("mixer.chunks_real", 1), ("mixer.chunks_run", 4)]

@@ -135,6 +135,11 @@ class ModelConfig:
     # "khgemm" / "khgemm_hybrid" / "khgemm_int8" = the kh-unrolled GEMM
     # lowerings (tpumix_torch/ops/conv_khgemm.py; int8 is inference only)
     conv_impl: str = "auto"
+    # the model's input: "db_stft" = each stem's dB STFT per chunk (the
+    # frontend above); "vggish" = each track's 16 kHz log-mel example per
+    # 0.96 s chunk, framed across chunk edges (tpumix_torch/ops/vggish.py),
+    # for a model of any number of tracks and a stereo mix
+    features: str = "db_stft"
 
     def frontend(self, base: Optional[FrontendConfig] = None) -> FrontendConfig:
         base = base or FrontendConfig()
@@ -154,6 +159,10 @@ def preset(name: str) -> ModelConfig:
         "scalar2s": ModelConfig(name="scalar2s", chunk_length_s=2.0, hop_length=512),
         "scalar2sL": ModelConfig(name="scalar2sL", chunk_length_s=2.0, hop_length=512),
         "resnet18": ModelConfig(name="resnet18", chunk_length_s=5.0, hop_length=1024),
+        # 0.96 s = 42336 samples: one VGGish example a chunk; the track count
+        # is the song's (num_stems is not read)
+        "dmc_vggish": ModelConfig(name="dmc_vggish", chunk_length_s=0.96, hop_length=160,
+                                  features="vggish"),
     }
     if name not in presets:
         raise ValueError(f"unknown model preset {name!r}; have {sorted(presets)}")

@@ -10,6 +10,19 @@ window ``num_chunks // 4`` forced odd, polyorder 2 (:137-140), the
 nearest-neighbour stretch to sample level (:12-41), and per-stem scaling
 (:142-143).  ``mix_song_smooth_device`` runs that epilogue on the card too.
 
+A model of ``features="vggish"`` (the Differentiable Mixing Console,
+``preset("dmc_vggish")``) takes any number N of tracks and mixes to stereo,
+through ``mix_song_smooth_device`` alone:
+
+    tracks [N, S] -> device -> per segment, its chunks' slice with the
+    resampler's and the frames' halo (ops/vggish.py) -> log-mel examples
+    [n, N, 96, 64] -> encoder, context, post-processor, console ->
+    (a_L, a_R) [n, N, 2]
+
+then the same smoothing and mask stretch on the ``2N`` rows of ``a_L`` and
+``a_R``, each track scaled into both channels, summed to a peak-normalised
+stereo mix ``[2, S]``.
+
 Reference semantics kept on purpose:
 * gains exist for windows ``[(i-1)C, iC)``, ``i in 1..num_chunks``: the LAST
   chunk gets no gain and the curve has ``num_chunks - 1`` entries;
@@ -30,6 +43,7 @@ import numpy as np
 import torch
 
 from tpumix_torch.config import MixConfig, ModelConfig
+from tpumix_torch.ops import vggish
 from tpumix_torch.ops.smoothing import (
     default_savgol_window,
     interpolate_mask,
@@ -96,8 +110,11 @@ def _pack_int12(src: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 class SongMixer:
     """Batched full-song gain computation + reference-parity mixing.
 
-    :param model: a scalar gain model (``tpumix_torch.models``) holding its
+    :param model: a gain model (``tpumix_torch.models``) holding its
         weights; it is moved to ``device`` in ``channels_last`` eval mode.
+        ``model_cfg.features`` says what it reads: ``"db_stft"`` (four
+        stems' dB STFTs, one gain each) or ``"vggish"`` (any number of
+        tracks, ``(a_L, a_R)`` each; :meth:`mix_song_smooth_device` only).
     :param transfer_dtype: host -> device wire format of the stems for the
         gain computation — ``"float32"``, ``"int16"`` (PCM16, lossless for
         16-bit sources), ``"int12"`` (per-row peak-scaled, packed) or
@@ -126,6 +143,12 @@ class SongMixer:
         disable_tf32()
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.model_cfg = model_cfg
+        if model_cfg.features not in ("db_stft", "vggish"):
+            raise ValueError(f"unknown model features {model_cfg.features!r}")
+        # a model of tracks reads VGGish examples framed across chunk edges,
+        # so each segment's slice carries the frontend's halo
+        self._tracks = model_cfg.features == "vggish"
+        self._halo = vggish.HALO if self._tracks else (0, 0)
         self.mix_cfg = mix_cfg or MixConfig(chunk_length_s=model_cfg.chunk_length_s)
         self.frontend = model_cfg.frontend()
         self.frontend.resolved_implementation()  # raise early on an unknown name
@@ -142,16 +165,23 @@ class SongMixer:
                   scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``[num_stems, n_chunks*C]`` (possibly quantised) on the device ->
         ``[n_chunks, num_stems]`` gains.  Chunking happens on the device so
-        the transfer is one contiguous buffer."""
+        the transfer is one contiguous buffer.  A model of tracks takes
+        ``[tracks, halo + n_chunks*C + halo]`` and gives ``[n_chunks, tracks,
+        2]``."""
         num_stems = flat.shape[0]
         x = _dequantize_on_device(flat, scales)
-        x = x.reshape(num_stems, n_chunks, self.chunk_samples).transpose(0, 1)  # [N, S, C]
         axis = self._chunk_axis
-        if axis is not None:
-            x = x[axis.rows(n_chunks)]  # this rank's share of the chunks
-        feats_tm = spectrogram_features_tm(x, self.frontend)  # [N, S, T, F]
-        # [N, S, F, T] as a channels_last view: physical [N, F, T, S]
-        feats = feats_tm.permute(0, 3, 2, 1).contiguous().permute(0, 3, 1, 2)
+        if self._tracks:
+            feats = vggish.segment_examples(x, n_chunks)  # [N, tracks, 96, 64]
+            if axis is not None:
+                feats = feats[axis.rows(n_chunks)]
+        else:
+            x = x.reshape(num_stems, n_chunks, self.chunk_samples).transpose(0, 1)  # [N, S, C]
+            if axis is not None:
+                x = x[axis.rows(n_chunks)]  # this rank's share of the chunks
+            feats_tm = spectrogram_features_tm(x, self.frontend)  # [N, S, T, F]
+            # [N, S, F, T] as a channels_last view: physical [N, F, T, S]
+            feats = feats_tm.permute(0, 3, 2, 1).contiguous().permute(0, 3, 1, 2)
         gains = self.model.gains(feats)
         if axis is None or axis.size == 1:
             return gains
@@ -182,6 +212,8 @@ class SongMixer:
         """Dispatch the whole song's gain computation without waiting for
         the device; collect with :meth:`collect_gains`.  Host packing of
         segment k+1 overlaps the transfer and compute of segment k."""
+        if self._tracks:
+            raise ValueError(f"{self.model_cfg.name} mixes through mix_song_smooth_device only")
         num_stems, S = stems.shape
         C = self.chunk_samples
         n_gains = S // C - 1
@@ -274,7 +306,8 @@ class SongMixer:
 
     def song_gains_device(self, stems_dev: torch.Tensor):
         """Per-chunk gains for stems already on the device (no packing, no
-        wire quantisation): ``song_gains_async``-style ``(gains, n)`` list."""
+        wire quantisation): ``song_gains_async``-style ``(gains, n)`` list.
+        Each segment's input is :meth:`segment_input`."""
         num_stems, S = stems_dev.shape
         C = self.chunk_samples
         n_gains = S // C - 1
@@ -285,13 +318,25 @@ class SongMixer:
         futures = []
         for lo in range(0, n_gains, seg):
             n = min(seg, n_gains - lo)
-            flat = stems_dev[:, lo * C : (lo + n) * C]
-            if n < seg:
-                flat = torch.nn.functional.pad(flat, (0, (seg - n) * C))
             count("mixer.chunks_real", n)
             count("mixer.chunks_run", seg)
-            futures.append((self._gains_fn(flat, seg), n))
+            futures.append((self._gains_fn(self.segment_input(stems_dev, lo, n, seg), seg), n))
         return futures
+
+    def segment_input(self, stems: torch.Tensor, lo: int, n: int, seg: int) -> torch.Tensor:
+        """What ``_gains_fn`` takes for chunks ``[lo, lo + n)`` of ``stems
+        [tracks, S]`` in a ``seg``-chunk segment: their samples with the
+        model's halo either side (``vggish.HALO``; none for the dB STFT),
+        zeros past the song's ends and for the ``seg - n`` chunks after."""
+        C, S = self.chunk_samples, stems.shape[-1]
+        left, right = self._halo
+        a, b = lo * C - left, min((lo + n) * C + right, S)
+        part = stems[:, max(a, 0):b]
+        pad_left = max(-a, 0)
+        pad_right = left + seg * C + right - pad_left - part.shape[-1]
+        if pad_left or pad_right:
+            part = torch.nn.functional.pad(part, (pad_left, pad_right))
+        return part
 
     def _savgol_params(self, num_chunks: int, n_gains: int):
         """Window policy shared by both epilogues: the curve length is the
@@ -305,13 +350,20 @@ class SongMixer:
         """``mix_song_smooth`` with gains, smoothing, mask stretch, scaling,
         mixdown and peak normalisation all on the device.
 
-        :param stems: ``[4, S]`` mono stems (tensor or array) or a track dict.
+        :param stems: ``[4, S]`` mono stems (tensor or array) or a track dict;
+            for a model of tracks ``[N, S]`` or a dict of any N track names.
         :return: ``(mixed_tracks [4, S], mixed [S] peak-normalised,
-            smooth_amp_curves [4, n_gains])`` — device tensors."""
+            smooth_amp_curves [4, n_gains])`` — device tensors; for a model
+            of tracks ``(mixed_tracks [N, 2, S], mixed [2, S],
+            smoothed (a_L, a_R) [N, 2, n_gains])``."""
         with span("mixer.song"):
             if isinstance(stems, dict):
-                stems = np.stack([self._mono(stems[t]) for t in STEMS])
-            stems_dev = torch.as_tensor(stems, dtype=torch.float32).to(self.device)
+                names = list(stems) if self._tracks else STEMS
+                stems = np.stack([self._mono(stems[t]) for t in names])
+            with span("mixer.stage"):
+                stems_dev = torch.as_tensor(stems, dtype=torch.float32).to(self.device)
+            if self._tracks:
+                return self._mix_tracks_stereo(stems_dev)
             num_stems, S = stems_dev.shape
             num_chunks = S // self.chunk_samples
             n_gains = num_chunks - 1
@@ -333,6 +385,30 @@ class SongMixer:
             peak = mixed.abs().max()
             mixed = torch.where(peak > 0, mixed / peak, mixed)
             return mixed_tracks, mixed, smoothed
+
+    def _mix_tracks_stereo(self, tracks: torch.Tensor):
+        """The stereo epilogue of a model of tracks: ``(a_L, a_R)`` of every
+        track smoothed as ``2N`` curves, each track scaled into both
+        channels, summed and peak-normalised."""
+        N, S = tracks.shape
+        num_chunks = S // self.chunk_samples
+        n_gains = num_chunks - 1
+        if n_gains <= 0:
+            # shorter than two chunks: each track in both channels, normalised
+            mixed_tracks = tracks[:, None, :].expand(N, 2, S)
+            curves = torch.zeros((N, 2, 0), device=self.device)
+        else:
+            amps = torch.cat([g[:n] for g, n in self.song_gains_device(tracks)], dim=0)
+            curves = amps.permute(1, 2, 0).reshape(2 * N, n_gains)  # rows (t, L), (t, R)
+            if n_gains >= 3:
+                win, poly = self._savgol_params(num_chunks, n_gains)
+                curves = savgol_smooth_torch(curves, win, poly)
+            mixed_tracks = tracks[:, None, :] * interpolate_mask(curves, S).view(N, 2, S)
+            curves = curves.view(N, 2, n_gains)
+        mixed = mixed_tracks.sum(dim=0)
+        peak = mixed.abs().max()
+        mixed = torch.where(peak > 0, mixed / peak, mixed)
+        return mixed_tracks, mixed, curves
 
     def mix_song_device(self, stems) -> torch.Tensor:
         """Device-resident :meth:`mix_song`: the peak-normalised mix ``[S]``."""

@@ -40,13 +40,22 @@ INFERENCE_ONLY = (
     "the parameters are the same")
 
 
+#: ``(Cin, Cout)`` of the 3x3 SAME blocks (:class:`ConvReLU2d`) at which
+#: K2's FP32 SIMT route was timed faster than cuDNN's float32 convolution on
+#: the card at a 64-chunk segment of 16 tracks (``chip_smoke.py --phases
+#: dmc``; PERF.md, section 6): none.  VGGish's 256- and 512-channel blocks
+#: ran it at 0.51-0.73x cuDNN's speed; its wgmma route (conv2) at 4.2x.
+K2_SIMT_FASTER: frozenset = frozenset()
+
+
 def _pair(k: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
     return (k, k) if isinstance(k, int) else tuple(k)
 
 
 def takes_fused_kernel(conv_impl: str, device_type: str, training: bool, records_grad: bool,
                        stride: Tuple[int, int], dilation: Tuple[int, int],
-                       x_dtype: torch.dtype, w_dtype: torch.dtype, cin: int, cout: int) -> bool:
+                       x_dtype: torch.dtype, w_dtype: torch.dtype, cin: int, cout: int,
+                       route: Optional[str] = None) -> bool:
     """Whether a :class:`ConvBlock2d` runs the fused conv+BN+ReLU kernel K2
     (tpumix_torch/ops/conv_block.py) for an input it sees.
 
@@ -59,14 +68,24 @@ def takes_fused_kernel(conv_impl: str, device_type: str, training: bool, records
     (3xTF32) and runs the scalar trunk's blocks 2-5 about 3x faster than
     cuDNN's float32 convolutions (PERF.md, section 6).  Everywhere else
     ``"auto"`` is ``"xla"``: the CPU, training, block 1 (stride 2, dilation
-    2), bfloat16."""
+    2), bfloat16.
+
+    ``route`` is the launcher's route for the block's shape on the card
+    (``ops.conv_block.conv_block_route``) where the block holds the kernel
+    to it, as :class:`ConvReLU2d` does: neither takes a shape the launcher
+    refuses (``"none"``: VGGish's conv1 reads one channel), and ``"auto"``
+    takes the ``wgmma`` route, and the FP32 SIMT route only for the shapes
+    in :data:`K2_SIMT_FASTER`.  ``None`` (``ConvBlock2d``) asks no route:
+    every scalar trunk block is on the ``wgmma`` route."""
     if conv_impl not in ("pallas", "auto"):
         return False
     eligible = (not training and stride == (1, 1) and dilation == (1, 1)
-                and x_dtype == torch.float32 and w_dtype == torch.float32)
+                and x_dtype == torch.float32 and w_dtype == torch.float32
+                and route != "none")
     if conv_impl == "pallas" or not eligible:
         return eligible
-    return device_type == "cuda" and not records_grad and cin % 4 == 0 and cout % 4 == 0
+    return (device_type == "cuda" and not records_grad and cin % 4 == 0 and cout % 4 == 0
+            and (route in (None, "wgmma") or (cin, cout) in K2_SIMT_FASTER))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -241,6 +260,64 @@ class ConvBlock2d(nn.Module):
         if self.dropout is not None:
             x = self.dropout(x)
         return x
+
+
+class ConvReLU2d(nn.Conv2d):
+    """VGG's layer (tensorflow/models research/audioset/vggish
+    ``vggish_slim``): a 3x3 convolution of stride 1 with SAME padding, bias,
+    then ReLU.  That is K2's function on the 1-padded input with scale 1 and
+    shift = bias, so ``conv_impl`` takes ``"auto"``, ``"pallas"`` or
+    ``"xla"`` as :class:`ConvBlock2d` does, and ``"auto"`` holds the kernel to
+    the routes :func:`takes_fused_kernel` admits (the launcher's route is
+    asked once per input shape).  The parameters are the ``nn.Conv2d``'s."""
+
+    def __init__(self, in_features: int, features: int, conv_impl: str = "xla"):
+        if conv_impl not in ("auto", "pallas", "xla"):
+            raise ValueError(f"ConvReLU2d takes conv_impl 'auto', 'pallas' or 'xla', "
+                             f"not {conv_impl!r}")
+        super().__init__(in_features, features, 3, padding=1)
+        self.conv_impl = conv_impl
+        self._packed: Optional[PackedConvBlock] = None
+        self._packed_key: Optional[tuple] = None
+        self._routes: dict = {}
+
+    def _fused_operands(self) -> PackedConvBlock:
+        """Weights packed for the kernel with scale 1 and shift = bias,
+        made anew when either changes (as ``ConvBlock2d._fused_operands``)."""
+        key = tuple((t._version, t.data_ptr(), t.device) for t in (self.weight, self.bias))
+        if key != self._packed_key:
+            with torch.no_grad():
+                self._packed = pack_conv_weights(self.weight.permute(2, 3, 1, 0),
+                                                 torch.ones_like(self.bias), self.bias)
+            self._packed_key = key
+        return self._packed
+
+    def _route(self, padded_shape: Tuple[int, int, int, int]) -> str:
+        if padded_shape not in self._routes:
+            from tpumix_torch.ops.conv_block import conv_block_route
+
+            self._routes[padded_shape] = conv_block_route(
+                padded_shape, (3, 3, self.in_channels, self.out_channels))
+        return self._routes[padded_shape]
+
+    def _fused_eligible(self, x: torch.Tensor) -> bool:
+        device = x.device.type
+        route = None
+        if self.conv_impl != "xla" and device == "cuda":
+            n, _, h, w = x.shape
+            route = self._route((n, h + 2, w + 2, self.in_channels))
+        return takes_fused_kernel(
+            self.conv_impl, device, self.training,
+            torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad),
+            self.stride, self.dilation, x.dtype, self.weight.dtype, self.in_channels,
+            self.out_channels, route=route)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fused_eligible(x):
+            nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            y = conv_block_fused_packed(F.pad(nhwc, (0, 0, 1, 1, 1, 1)), self._fused_operands())
+            return y.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        return torch.relu(super().forward(x))
 
 
 class ScalarHead(nn.Module):

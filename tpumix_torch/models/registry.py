@@ -10,6 +10,7 @@ import torch.nn as nn
 
 from tpumix_torch.config import ModelConfig
 from tpumix_torch.models.blocks import INFERENCE_ONLY
+from tpumix_torch.models.dmc import DifferentiableMixingConsole, init_dmc_weights
 from tpumix_torch.models.resnet import GainResNet
 from tpumix_torch.models.scalar import (
     MixingModelScalar1s,
@@ -63,9 +64,18 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
     faster than cuDNN; every other block, and every block on the CPU or in
     training, runs ``F.conv2d``.  ``resnet18`` is ``GainResNet``,
     whose convolutions are ``F.conv2d`` whatever ``conv_impl`` says (as in
-    the JAX package) and whose BatchNorm keeps torch's default momentum."""
-    if cfg.name not in _SCALAR and cfg.name != "resnet18":
-        raise ValueError(f"unknown model {cfg.name!r}; have {sorted([*_SCALAR, 'resnet18'])}")
+    the JAX package) and whose BatchNorm keeps torch's default momentum.
+    ``dmc_vggish`` is ``DifferentiableMixingConsole`` (any number of tracks,
+    ``in_shape`` unused): its VGGish convolutions take K2 under ``"auto"``
+    only where ``takes_fused_kernel`` admits their route."""
+    if cfg.name not in _SCALAR and cfg.name not in ("resnet18", "dmc_vggish"):
+        raise ValueError(f"unknown model {cfg.name!r}; "
+                         f"have {sorted([*_SCALAR, 'resnet18', 'dmc_vggish'])}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if cfg.name == "dmc_vggish":
+        model = DifferentiableMixingConsole(conv_impl=cfg.conv_impl)
+        return init_dmc_weights(model, generator).train(for_training)
     if in_shape is None:
         in_shape = (cfg.frontend().num_bins, cfg.num_frames)
     if cfg.conv_impl == "khgemm_int8" and for_training:
@@ -78,8 +88,6 @@ def build_model(cfg: ModelConfig, in_shape: Optional[Tuple[int, int]] = None,
             in_shape=in_shape, num_stems=cfg.num_stems, bn_momentum=cfg.bn_momentum,
             use_dropout=cfg.use_dropout, conv_impl=cfg.conv_impl, compute_dtype=dtype,
         )
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     return init_weights(model, generator).train(for_training)
 
 
